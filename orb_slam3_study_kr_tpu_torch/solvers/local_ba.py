@@ -1,0 +1,118 @@
+"""Bundle adjustment as dense-block Levenberg-Marquardt with the Schur
+complement over landmarks.
+
+Counterpart of ``orb_slam3_study_kr_tpu/solvers/local_ba.py`` (the dense
+assembly, which serves the two-keyframe init BA and local BA on the
+monocular main path):
+
+- observations are flat index arrays (pose_idx, landmark_idx, uv, level,
+  mask) — the bipartite graph as COO;
+- per-pose 6x6 and per-landmark 3x3 blocks come from index_add segment
+  sums;
+- landmark elimination inverts (M, 3, 3) blocks in batch and the reduced
+  camera system S = Hpp - W Hll^-1 W^T is built from the dense
+  (K, M, 6, 3) cross block and solved densely;
+- LM damping with accept/reject stays on the device.
+
+The caller culls observations whose final chi2 exceeds the 5.991 gate.
+"""
+
+import torch
+
+from orb_slam3_study_kr_tpu_torch.lie.se3 import exp_se3, se3_compose
+from orb_slam3_study_kr_tpu_torch.solvers import robust
+from orb_slam3_study_kr_tpu_torch.solvers.reproj import residual_and_jacobians
+
+
+def _diag(Hb, n):
+    eye = torch.eye(n, dtype=Hb.dtype, device=Hb.device)
+    return eye * Hb * eye
+
+
+def bundle_adjust(project_fn, project_jac_fn,
+                  R_cw, t_cw, fixed,            # (K,3,3), (K,3), (K,) 1 = frozen
+                  X, lm_mask,                   # (M,3), (M,) 1 = live landmark
+                  obs_pose, obs_lm, obs_uv, obs_level, obs_mask,
+                  n_iters: int = 10, use_huber: bool = True,
+                  init_lambda: float = 1e-4):
+    """Returns (R_cw, t_cw, X, final_chi2 (O,), final_cost)."""
+    K = R_cw.shape[0]
+    M = X.shape[0]
+    dt = R_cw.dtype
+    dev = R_cw.device
+    obs_pose = obs_pose.long()
+    obs_lm = obs_lm.long()
+    inv_sigma2 = robust.octave_inv_sigma2(obs_level)
+    chi2_gate = robust.CHI2_MONO
+    huber_delta = torch.sqrt(torch.tensor(chi2_gate, dtype=dt, device=dev))
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    cell = obs_pose * M + obs_lm
+
+    def huber_rho(chi2):
+        r = torch.sqrt(torch.clamp(chi2, min=1e-12))
+        return torch.where(chi2 <= chi2_gate, chi2,
+                           2 * huber_delta * r - chi2_gate)
+
+    def compute(R_all, t_all, X_all):
+        r, J_pose, J_point, p = residual_and_jacobians(
+            project_jac_fn, project_fn, R_all[obs_pose], t_all[obs_pose],
+            X_all[obs_lm], obs_uv)
+        chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
+        valid = obs_mask * lm_mask[obs_lm] * (p[:, 2] > 1e-3)
+        w = inv_sigma2 * valid
+        if use_huber:
+            w = w * robust.huber_weight(chi2, huber_delta)
+            cost = torch.sum(huber_rho(chi2) * valid)
+        else:
+            cost = torch.sum(chi2 * valid)
+        return r, J_pose, J_point, w, chi2, cost
+
+    def seg_sum(n, idx, vals):
+        return torch.zeros((n, *vals.shape[1:]), dtype=dt,
+                           device=dev).index_add_(0, idx, vals)
+
+    free_pose = (1.0 - fixed)[obs_pose]
+    fixd = fixed.repeat_interleave(6)
+    R_all, t_all, X_all = R_cw, t_cw, X
+    lam = torch.tensor(init_lambda, dtype=dt, device=dev)
+    cost = compute(R_all, t_all, X_all)[5]
+    for _ in range(n_iters):
+        r, J_pose, J_point, w, chi2, _ = compute(R_all, t_all, X_all)
+        Jp = J_pose * free_pose[:, None, None]
+        Hpp = seg_sum(K, obs_pose, torch.einsum("nia,n,nib->nab", Jp, w, Jp))
+        bp = seg_sum(K, obs_pose, torch.einsum("nia,n,ni->na", Jp, w, r))
+        Hll = seg_sum(M, obs_lm, torch.einsum("nia,n,nib->nab", J_point, w,
+                                              J_point))
+        bl = seg_sum(M, obs_lm, torch.einsum("nia,n,ni->na", J_point, w, r))
+        E = torch.einsum("nia,n,nib->nab", Jp, w, J_point)   # (O, 6, 3)
+
+        Hll_d = Hll + lam * (eye3[None] + _diag(Hll, 3))
+        Hpp_d = Hpp + lam * (eye6[None] + _diag(Hpp, 6))
+        Hll_inv = torch.linalg.inv(Hll_d) * lm_mask[:, None, None]
+
+        # Dense cross block W (K, M, 6, 3) and the reduced camera system.
+        W = seg_sum(K * M, cell, E).reshape(K, M, 6, 3)
+        Wi = torch.einsum("kmab,mbc->kmac", W, Hll_inv)
+        S = -torch.einsum("kmac,lmbc->kalb", Wi, W).reshape(6 * K, 6 * K)
+        S = S + torch.block_diag(*Hpp_d)
+        rhs = -(bp - torch.einsum("kmab,mb->ka", Wi, bl)).reshape(6 * K)
+        S = S * (1 - fixd)[:, None] * (1 - fixd)[None, :] + torch.diag(fixd)
+        dp = torch.linalg.solve(S, rhs).reshape(K, 6)
+
+        Wtdp = seg_sum(M, obs_lm, torch.einsum("nab,na->nb", E, dp[obs_pose]))
+        dl = -torch.einsum("mab,mb->ma", Hll_inv, bl + Wtdp)
+
+        dR, dtr = exp_se3(dp)
+        R_new, t_new = se3_compose(dR, dtr, R_all, t_all)
+        X_new = X_all + dl * lm_mask[:, None]
+        cost_new = compute(R_new, t_new, X_new)[5]
+        accept = cost_new < cost
+        R_all = torch.where(accept, R_new, R_all)
+        t_all = torch.where(accept, t_new, t_all)
+        X_all = torch.where(accept, X_new, X_all)
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
+                          torch.clamp(lam * 4.0, max=1e3))
+        cost = torch.where(accept, cost_new, cost)
+    chi2 = compute(R_all, t_all, X_all)[4]
+    return R_all, t_all, X_all, chi2, cost

@@ -1,0 +1,289 @@
+"""The torch port's main path against the JAX reference package.
+
+One module-scoped JAX run of ``test_mono_slam_smoke``'s scenario (loop
+closing off, seed 1, 18 frames at 752x480) provides: the tracker state just
+before frame K (carried into the port with ``tracker_state_from_numpy``),
+the reference's fused-frame result at frame K, the RANSAC key chain, and
+the reference trajectory.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from orb_slam3_study_kr_tpu.cameras import twoview as jtwoview
+from orb_slam3_study_kr_tpu.evaluation import align_horn, ate_rmse
+from orb_slam3_study_kr_tpu.io import synthetic
+from orb_slam3_study_kr_tpu.pipeline import SlamSystem as JSlamSystem
+from orb_slam3_study_kr_tpu.pipeline import SystemConfig as JSystemConfig
+from orb_slam3_study_kr_tpu.pipeline.tracking import TrackerConfig as JTrackerConfig
+from orb_slam3_study_kr_tpu_torch import convert
+from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
+from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig, TrackState
+from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM
+
+torch.set_num_threads(2)
+
+N_FRAMES = 18
+K_FRAME = 12          # frame whose fused slice is compared (state carried)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _frames():
+    rng = np.random.default_rng(1)
+    world = synthetic.make_textured_world(rng, depth=6.0)
+    R_gt, t_gt = synthetic.lateral_trajectory(N_FRAMES, x_span=0.5, z_span=0.0,
+                                              y_amp=0.0)
+    imgs = [synthetic.render_textured(world, R_gt[i], t_gt[i], rng=rng)
+            for i in range(N_FRAMES)]
+    return imgs, R_gt, t_gt
+
+
+def _capture(slam):
+    """Numpy snapshot of the reference tracker's state."""
+    tr = slam.tracker
+    m = tr.map
+    tables = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+              for k, v in vars(m).items()
+              if isinstance(v, (np.ndarray, int, float, bool))}
+    lf = tr.last_frame
+    last = {k: np.array(getattr(lf, k)) for k in
+            ("uv", "uv_raw", "level", "angle", "response", "desc", "valid",
+             "patch")}
+    last.update(kp_lm=lf.kp_lm.copy(), R_cw=np.array(lf.R_cw),
+                t_cw=np.array(lf.t_cw), frame_id=lf.frame_id,
+                timestamp=lf.timestamp, ref_kf=lf.ref_kf, pose_ok=lf.pose_ok,
+                rel_ref=lf.rel_ref, rel_R=np.array(lf.rel_R),
+                rel_t=np.array(lf.rel_t))
+    blk = None
+    if getattr(tr, "_fblk", None) is not None:
+        blk = {k: (np.array(v) if not isinstance(v, (int, type(m))) else v)
+               for k, v in tr._fblk.items() if k != "map_ref"}
+    return dict(map_tables=tables, last_frame=last,
+                velocity=tuple(np.array(a) for a in tr.velocity),
+                ref_kf=tr.ref_kf, speed_hist=list(tr._speed_hist),
+                state=tr.state.name, frame_count=tr.frame_count,
+                last_kf_frame_id=tr.last_kf_frame_id, fused_block=blk,
+                last_change_idx=getattr(tr, "_last_change_idx", -1))
+
+
+@pytest.fixture(scope="module")
+def reference():
+    imgs, R_gt, t_gt = _frames()
+    slam = JSlamSystem(JSystemConfig(tracker=JTrackerConfig(fps=10),
+                                     enable_loop_closing=False))
+    tr = slam.tracker
+    fused = {}
+    orig = tr._track_fused_frame
+
+    def recording(frame, R_pred=None, t_pred=None):
+        n = orig(frame, R_pred=R_pred, t_pred=t_pred)
+        if frame.frame_id == K_FRAME and "n" not in fused:
+            fused.update(n=n, R=np.array(frame.R_cw), t=np.array(frame.t_cw),
+                         kp_lm=frame.kp_lm.copy())
+        return n
+
+    tr._track_fused_frame = recording
+    state = None
+    for i in range(N_FRAMES):
+        if i == K_FRAME:
+            state = _capture(slam)
+        slam.track_monocular(imgs[i], i * 0.1)
+    rows = slam.trajectory()
+    centers = -np.einsum("nij,nj->ni", R_gt.transpose(0, 2, 1), t_gt)
+    rmse, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4], np.arange(N_FRAMES) * 0.1,
+                           centers, True)
+    return dict(imgs=imgs, centers=centers, state=state, fused=fused,
+                rows=rows, rmse=rmse, nm=nm, n_kf=slam.stats()["n_kf"],
+                jax_state=slam.state)
+
+
+def _port_system(**kw):
+    return SlamSystem(SystemConfig(tracker=TrackerConfig(fps=10),
+                                   enable_loop_closing=False, device="cpu"),
+                      **kw)
+
+
+def test_fused_track_frame_from_carried_state(reference):
+    """One fused-frame slice from the reference's state: pose within 1e-4
+    (translation in map units, rotation matrix entries), inlier count
+    within 1 % and >= 99 % of keypoint bindings identical.  The frame's
+    features come from the port's own extraction, whose pyramid differs
+    from the reference's by float32 ulps (tests/test_torch_orb.py), so a
+    borderline match may differ; measured on CPU: identical inliers and
+    bindings, pose within 3e-8."""
+    ref = reference
+    assert ref["fused"]["n"] is not None and ref["fused"]["n"] > 25
+    slam = _port_system()
+    tr = slam.tracker
+    convert.tracker_state_from_numpy(tr, **ref["state"])
+    frame = tr._extract_frame(ref["imgs"][K_FRAME], K_FRAME * 0.1)
+    assert frame.frame_id == K_FRAME
+    tr._update_last_frame()
+    n = tr._track_fused_frame(frame)
+    jf = ref["fused"]
+    assert n is not None
+    assert abs(n - jf["n"]) <= 0.01 * jf["n"]
+    np.testing.assert_allclose(frame.R_cw, jf["R"], atol=1e-4)
+    np.testing.assert_allclose(frame.t_cw, jf["t"], atol=1e-4)
+    both = (frame.kp_lm != NO_LM) | (jf["kp_lm"] != NO_LM)
+    assert (frame.kp_lm[both] == jf["kp_lm"][both]).mean() >= 0.99
+
+
+class _JaxKeyChain:
+    """The reference tracker's RANSAC draws: PRNGKey(seed), one split per
+    reconstruction attempt, then one split into (homography, fundamental)
+    keys inside reconstruct_two_views."""
+
+    def __init__(self, seed=0):
+        self.key = jax.random.PRNGKey(seed)
+
+    def __call__(self, mask, iters):
+        self.key, sub = jax.random.split(self.key)
+        kh, kf = jax.random.split(sub)
+        m = jnp.asarray(mask)
+        return tuple(np.asarray(jtwoview._sample_minimal_sets(k, m, iters))
+                     for k in (kh, kf))
+
+
+def test_mono_slam_smoke_session_matches_reference(reference):
+    """test_mono_slam_smoke's walls on the port (state OK, nm > 10, ATE <
+    0.05), n_kf within 1 of the reference run, and — with the reference's
+    RANSAC draws injected — camera centres within 1e-3 (ground-truth
+    metres, trajectory span 0.5) of the reference's, frame by frame, after
+    each is sim3-aligned to the ground truth (measured on CPU: 2.5e-5)."""
+    ref = reference
+    slam = _port_system(ransac_sets_fn=_JaxKeyChain(0))
+    for i, img in enumerate(ref["imgs"]):
+        slam.track_monocular(img, i * 0.1)
+    rows = slam.trajectory()
+    rmse, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4],
+                           np.arange(N_FRAMES) * 0.1, ref["centers"], True)
+    stats = slam.stats()
+    assert slam.state == TrackState.OK, stats
+    assert nm > 10
+    assert rmse < 0.05, rmse
+    assert abs(stats["n_kf"] - ref["n_kf"]) <= 1, (stats["n_kf"], ref["n_kf"])
+
+    def aligned(r):
+        idx = np.rint(r[:, 0] / 0.1).astype(int)
+        gt = ref["centers"][idx]
+        R, t, s = align_horn(r[:, 1:4].T, gt.T, True)
+        return dict(zip(idx, (s * R @ r[:, 1:4].T + t).T))
+
+    a, b = aligned(rows), aligned(ref["rows"])
+    common = sorted(set(a) & set(b))
+    assert len(common) >= 10
+    err = max(np.linalg.norm(a[i] - b[i]) for i in common)
+    assert err < 1e-3, err
+
+
+def _run_port(render, R_gt, t_gt):
+    n = R_gt.shape[0]
+    slam = _port_system()
+    for i in range(n):
+        slam.track_monocular(render(i), i * 0.1)
+    rows = slam.trajectory()
+    centers = -np.einsum("nij,nj->ni", R_gt.transpose(0, 2, 1), t_gt)
+    rmse, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4], np.arange(n) * 0.1,
+                           centers, True)
+    return slam, rows, rmse, nm
+
+
+@pytest.mark.slow
+def test_mono_slam_textured_lateral_port(tmp_path):
+    """The reference's slow-tier lateral walls (tests/test_pipeline.py) on
+    the port, loop closing off: OK, n_kf >= 3, nm > 25, ATE < 0.06, and a
+    TUM trajectory file with one 8-column row per frame."""
+    rng = np.random.default_rng(1)
+    world = synthetic.make_textured_world(rng, depth=6.0)
+    R_gt, t_gt = synthetic.lateral_trajectory(40, x_span=1.0, z_span=0.0,
+                                              y_amp=0.0)
+    slam, rows, rmse, nm = _run_port(
+        lambda i: synthetic.render_textured(world, R_gt[i], t_gt[i], rng=rng),
+        R_gt, t_gt)
+    stats = slam.stats()
+    assert slam.state == TrackState.OK, stats
+    assert stats["n_kf"] >= 3, stats
+    assert nm > 25
+    assert rmse < 0.06, rmse
+    path = tmp_path / "traj.txt"
+    slam.save_trajectory_tum(path)
+    lines = path.read_text().strip().splitlines()
+    assert len(lines) == rows.shape[0]
+    assert len(lines[0].split()) == 8
+
+
+@pytest.mark.slow
+def test_mono_slam_blob_orbit_robustness_port():
+    """The reference's blob-field orbit walls on the port.  The reference
+    test runs with loop closing on; the port runs it off, its only route.
+    Never LOST, n_kf >= 2, nm >= 15, ATE < 0.25."""
+    rng = np.random.default_rng(5)
+    scene = synthetic.make_scene(rng, n_points=700)
+    R_gt, t_gt = synthetic.circular_trajectory(30, radius=1.2, span=0.35)
+    slam, _, rmse, nm = _run_port(
+        lambda i: synthetic.render(scene, R_gt[i], t_gt[i], rng=rng)[0],
+        R_gt, t_gt)
+    stats = slam.stats()
+    assert slam.state in (TrackState.OK, TrackState.RECENTLY_LOST), stats
+    assert stats["n_kf"] >= 2
+    assert nm >= 15
+    assert rmse < 0.25, rmse
+
+
+def test_port_imports_no_jax():
+    code = ("import sys\n"
+            "import orb_slam3_study_kr_tpu_torch.pipeline\n"
+            "import orb_slam3_study_kr_tpu_torch.convert\n"
+            "import orb_slam3_study_kr_tpu_torch.ops.cuda_lib\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m.startswith('orb_slam3_study_kr_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_cuda_device_without_cuda_raises():
+    """device="cuda" (the default) raises instead of running on the CPU."""
+    assert SystemConfig().device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlamSystem(SystemConfig(enable_loop_closing=False, device="cuda"))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(enable_loop_closing=True),
+    dict(async_mapping=True),
+    dict(sensor="stereo"),
+    dict(tracker=TrackerConfig(camera_model="kb8")),
+], ids=["loop_closing", "async_mapping", "stereo", "kb8"])
+def test_unported_routes_raise(kw):
+    cfg = dict(enable_loop_closing=False, device="cpu")
+    cfg.update(kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SlamSystem(SystemConfig(**cfg))
+
+
+def test_config_conversion_from_reference_fields():
+    jt = JTrackerConfig(fps=10, n_features=800, dist=(0.1, 0.0, 0.0, 0.0, 0.0))
+    tt = convert.tracker_config_from_dict(dataclasses.asdict(jt))
+    for f in dataclasses.fields(TrackerConfig):
+        if f.name != "device":
+            assert getattr(tt, f.name) == getattr(jt, f.name), f.name
+    js = JSystemConfig(tracker=jt, enable_loop_closing=False, max_lm=5000)
+    ts = convert.system_config_from_dict(dataclasses.asdict(js), device="cpu")
+    assert ts.max_lm == 5000 and not ts.enable_loop_closing
+    assert ts.tracker.n_features == 800 and ts.device == "cpu"
