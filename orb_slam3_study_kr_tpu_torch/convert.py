@@ -10,7 +10,16 @@ this module imports neither package's JAX side:
   (``dataclasses.asdict`` of them);
 - ``tracker_state_from_numpy`` loads a map's numpy tables plus the
   tracker's host state into a port ``MonoTracker``, so that one frame can be
-  tracked in both packages from the same state.
+  tracked in both packages from the same state;
+- ``vocabulary_from_numpy`` builds the port's vocabulary from the
+  reference's ``vocabulary_arrays`` (the same checksum);
+- ``loop_closer_state_from_numpy`` installs loop edges, a pending detection
+  and the cascade's counters into a port ``LoopCloser``.
+
+- ``session_map_from_numpy`` installs a reference map and its vocabulary
+  into a port ``SlamSystem`` and rebuilds the keyframe database and the
+  loop closer from them (the reference's atlas-restore path), so the port
+  can relocalize against a map the reference built.
 """
 
 import dataclasses
@@ -18,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from orb_slam3_study_kr_tpu_torch.bow.vocabulary import vocabulary_from_arrays
 from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
 from orb_slam3_study_kr_tpu_torch.pipeline.system import SystemConfig
 from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig, TrackState
@@ -48,6 +58,11 @@ def system_config_from_dict(d, device="cuda", **overrides) -> SystemConfig:
     return SystemConfig(**kw)
 
 
+def _install_map_tables(m, map_tables):
+    for k, v in map_tables.items():
+        setattr(m, k, np.array(v) if isinstance(v, np.ndarray) else v)
+
+
 def tracker_state_from_numpy(tracker, map_tables, last_frame, velocity,
                              ref_kf, speed_hist, state="OK", frame_count=None,
                              last_kf_frame_id=-1, fused_block=None,
@@ -65,8 +80,7 @@ def tracker_state_from_numpy(tracker, map_tables, last_frame, velocity,
       patch, normal, min_d, max_d, mask_all rows), or None to rebuild it.
     """
     m = tracker.map
-    for k, v in map_tables.items():
-        setattr(m, k, np.array(v) if isinstance(v, np.ndarray) else v)
+    _install_map_tables(m, map_tables)
     lf = dict(last_frame)
     host = {k: np.array(lf.pop(k)) for k in
             ("uv", "uv_raw", "level", "angle", "response", "desc", "valid",
@@ -108,3 +122,66 @@ def tracker_state_from_numpy(tracker, map_tables, last_frame, velocity,
     blk["map_ref"] = m
     tracker._fblk = blk
     return tracker
+
+
+def vocabulary_from_numpy(arrays, device="cpu"):
+    """Port vocabulary from the reference's ``vocabulary_arrays(voc)``
+    dict (or an npz of it): same arrays, same checksum."""
+    return vocabulary_from_arrays(arrays, device=device)
+
+
+def loop_closer_state_from_numpy(loop_closer, loop_edges=(), pending=None,
+                                 stats=None):
+    """Install reference loop-closing state into a port LoopCloser (in
+    place): accepted loop edges [(kf, cand), ...], the pending detection
+    awaiting temporal consistency (dict with cand, window, Scw = (R, t, s),
+    last_kf, count, not_found) and the cascade's counters."""
+    loop_closer.loop_edges = [(int(a), int(b)) for a, b in loop_edges]
+    if pending is None:
+        loop_closer._pending = None
+    else:
+        R, t, s = pending["Scw"]
+        loop_closer._pending = dict(
+            cand=int(pending["cand"]),
+            window=np.array(pending["window"], np.int32),
+            Scw=(np.array(R, np.float32), np.array(t, np.float32), float(s)),
+            last_kf=int(pending["last_kf"]), count=int(pending["count"]),
+            not_found=int(pending["not_found"]))
+    if stats is not None:
+        loop_closer.stats.update({k: int(v) for k, v in stats.items()})
+    return loop_closer
+
+
+def session_map_from_numpy(slam, map_tables, vocabulary, ref_kf=None,
+                           database=None):
+    """Install a reference map (MapState tables as in
+    ``tracker_state_from_numpy``) and its vocabulary (``vocabulary_arrays``
+    of it) into a port SlamSystem (in place) and set the tracker to
+    relocalize against the map (RECENTLY_LOST, reference keyframe ``ref_kf``
+    or the newest one).  The keyframe database is rebuilt from the map's
+    keyframes, or installed as given: ``database`` = dict(vectors={kf:
+    (words, weights)}, inv_file={word: [kf, ...]}) of a live reference
+    session (whose inverted file can list a keyframe twice)."""
+    from orb_slam3_study_kr_tpu_torch.bow.database import KeyframeDatabase
+    from orb_slam3_study_kr_tpu_torch.pipeline.loop_closing import LoopCloser
+
+    m = slam.atlas.active_map
+    _install_map_tables(m, map_tables)
+    slam.voc = vocabulary_from_numpy(vocabulary, device=slam.device)
+    slam.db = KeyframeDatabase(slam.voc)
+    slam.map_dbs = {m.map_id: slam.db}
+    slam.loop_closer = LoopCloser(cfg=slam.cfg.tracker, map=m, db=slam.db)
+    kfs = np.nonzero(m.kf_valid)[0]
+    if database is None:
+        for k in kfs:
+            slam.db.add(int(k), m.kf_desc[k], m.kf_kp_valid[k])
+    else:
+        for k, (words, vals) in database["vectors"].items():
+            slam.db.vectors[int(k)] = (np.array(words, np.int64),
+                                       np.array(vals, np.float32))
+        for w, lst in database["inv_file"].items():
+            slam.db.inv_file[int(w)] = [int(k) for k in lst]
+    tr = slam.tracker
+    tr.ref_kf = int(kfs[-1] if ref_kf is None else ref_kf)
+    tr.state = TrackState.RECENTLY_LOST
+    return slam

@@ -108,6 +108,16 @@ def left_jacobian_so3(w):
     return _eye_like(W) + b[..., None, None] * W + c[..., None, None] * W2
 
 
+def normalize_rotation(R):
+    """Project (..., 3, 3) onto SO(3) via SVD, flipping the last singular
+    direction of a reflection."""
+    U, _, Vt = torch.linalg.svd(R)
+    det = torch.linalg.det(U @ Vt)
+    one = torch.ones_like(det)
+    D = torch.stack([one, one, det], dim=-1)
+    return (U * D[..., None, :]) @ Vt
+
+
 def matrix_to_quat(R):
     """(..., 3, 3) -> (..., 4) [w, x, y, z], w >= 0 (Shepperd-style, best
     conditioned of the four candidates)."""

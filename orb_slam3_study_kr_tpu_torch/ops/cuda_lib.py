@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
 All ``csrc/*.cu`` files compile into ONE shared library with a plain C
-interface (nvcc, ``sm_90a``), loaded with ctypes.  The build happens at
-first use into ``csrc/build/`` (git-ignored); the library name carries a
-hash of the sources, so an edited kernel is rebuilt and a stale one is
-never loaded.  Nothing here runs at import time: CPU-only machines import
+interface (nvcc, ``sm_90a``), loaded with ctypes: one nvcc process per
+source, all started together, then one link.  The build happens at first
+use into ``csrc/build/`` (git-ignored); the library name carries a hash of
+the sources, so an edited kernel is rebuilt and a stale one is never
+loaded.  Nothing here runs at import time: CPU-only machines import
 the wrappers and never reach this module's build.
 """
 
@@ -17,9 +18,9 @@ import subprocess
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("fast_nms_blur.cu", "gated_nn.cu")
+SOURCES = ("fast_nms_blur.cu", "gated_nn.cu", "hamming_nn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib = None
 
@@ -49,9 +50,22 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{so}.{os.getpid()}.tmp"
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                    *[os.path.join(CSRC, s) for s in SOURCES]], check=True)
+    objs = [f"{tmp}.{name}.o" for name in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name),
+                               "-o", obj])
+             for name, obj in zip(SOURCES, objs)]
+    failed = [name for name, p in zip(SOURCES, procs) if p.wait() != 0]
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}")
+        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                       check=True)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so)
     return so
 
@@ -70,6 +84,8 @@ def load():
     lib.gated_nn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
                              i, i, i, i, p]
     lib.gated_nn.restype = i
+    lib.hamming_nn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.hamming_nn.restype = i
     _lib = lib
     return lib
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``orb_slam3_study_kr_tpu/ops/track_match.py``.  One path per
 op: the gated nearest-neighbour search goes through K2
-(``ops/cuda_matching.gated_nn``), which is the CUDA kernel on the card and
+(``ops/cuda_matching.gated_nn``) and descriptor-only matching through K3
+(``ops/cuda_hamming.hamming_nn``); each is the CUDA kernel on the card and
 the dense masked Hamming matrix on the CPU.  Gate constants: distance band
 [0.8 min, 1.2 max], viewing-angle cos > 0.5, radius 2.5 / 4.0 by view angle
 (x th), per-level radius scaling, TH_HIGH acceptance.
@@ -10,8 +11,10 @@ the dense masked Hamming matrix on the CPU.  Gate constants: distance band
 
 import torch
 
+from orb_slam3_study_kr_tpu_torch.ops.cuda_hamming import hamming_nn
 from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import gated_nn
-from orb_slam3_study_kr_tpu_torch.ops.matching import BIG, TH_HIGH, hamming_matrix
+from orb_slam3_study_kr_tpu_torch.ops.matching import (BIG, TH_HIGH, _excl_min,
+                                                       hamming_matrix)
 
 VIEW_COS_LIMIT = 0.5
 
@@ -110,16 +113,39 @@ def match_local_map_batch(
 def match_by_descriptor(q_desc, q_valid, t_desc, t_valid, max_dist=50.0,
                         nn_ratio=0.75):
     """Unconstrained descriptor matching with ratio + mutual check (the
-    dense stand-in for SearchByBoW)."""
-    dist = hamming_matrix(q_desc, t_desc)
-    mask = q_valid[:, None] & t_valid[None, :]
-    d = torch.where(mask, dist, torch.full_like(dist, BIG))
-    idx = torch.argmin(d, dim=1)
-    best = d.min(dim=1).values
-    excl = torch.arange(d.shape[1], device=d.device)[None, :] == idx[:, None]
-    second = torch.where(excl, torch.full_like(d, BIG), d).min(dim=1).values
+    dense stand-in for SearchByBoW), as two K3 passes: the row pass gives
+    (idx, best, second) for the ratio test, the column pass (targets as
+    queries) gives each target's best query for the mutual check.  Both
+    passes mask with both validity vectors, so idx is 0 on invalid rows.
+
+    q_desc (Q, 256) / q_valid (Q,), t_desc (T, 256) / t_valid (T,); either
+    side may carry a leading batch axis (the loop window: one query set
+    against (W, T) targets, one launch per pass).  Returns (idx (..., Q)
+    int64, ok (..., Q) bool, best (..., Q) f32)."""
+    q_desc, q_valid = q_desc.contiguous(), q_valid.contiguous()
+    t_desc, t_valid = t_desc.contiguous(), t_valid.contiguous()
+    best, second, idx = hamming_nn(q_desc, q_valid, t_desc, t_valid)
+    _, _, back = hamming_nn(t_desc, t_valid, q_desc, q_valid)
+    idx = idx.long()
     ok = (best <= max_dist) & (best < nn_ratio * second)
-    back = torch.argmin(d, dim=0)
-    ok = ok & (back[idx] == torch.arange(idx.shape[0], device=d.device))
+    ar = torch.arange(idx.shape[-1], device=idx.device)
+    ok = ok & (torch.gather(back.long(), -1, idx) == ar)
     return idx, ok, best
 
+
+def match_by_descriptor_plain(q_desc, q_valid, t_desc, t_valid, max_dist=50.0,
+                              nn_ratio=0.75):
+    """The dense masked-matrix form of match_by_descriptor (the reference's
+    jnp expression, leading axes broadcast); tests hold the K3 route to
+    it."""
+    dist = hamming_matrix(q_desc, t_desc)
+    mask = q_valid[..., :, None] & t_valid[..., None, :]
+    d = torch.where(mask, dist, torch.full_like(dist, BIG))
+    idx = torch.argmin(d, dim=-1)
+    best = torch.gather(d, -1, idx[..., None])[..., 0]
+    second = _excl_min(d, idx, -1)
+    ok = (best <= max_dist) & (best < nn_ratio * second)
+    back = torch.argmin(d, dim=-2)
+    ar = torch.arange(idx.shape[-1], device=d.device)
+    ok = ok & (torch.gather(back, -1, idx) == ar)
+    return idx, ok, best

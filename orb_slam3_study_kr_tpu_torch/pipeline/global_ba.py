@@ -1,0 +1,157 @@
+"""Global bundle adjustment over a whole map, on one device.
+
+Counterpart of ``orb_slam3_study_kr_tpu/pipeline/global_ba.py``
+(Optimizer::GlobalBundleAdjustemnt + LoopClosing::RunGlobalBundleAdjustment):
+after a loop correction every keyframe and landmark is refined with a
+bounded-iteration LM solve.  Large maps switch from the dense-Schur
+assembly to the matrix-free PCG reduced-camera solve, so GBA is never
+skipped for memory.  The landmark-sharded multi-device solve is not ported
+(ROADMAP item 19; ``SystemConfig(ba_devices > 1)`` raises).
+
+The map is snapshotted (``_assemble_gba``), solved (``_solve_gba``) and
+written back (``_apply_gba``); rows created between snapshot and write-back
+are corrected through the newest snapshot keyframe.
+"""
+
+import contextlib
+
+import numpy as np
+import torch
+
+from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM, MapState
+from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust
+from orb_slam3_study_kr_tpu_torch.solvers.robust import CHI2_MONO
+
+# Above this dense cross-block size (K * M * 18 floats) the solve switches
+# to the matrix-free PCG assembly.
+DENSE_CROSS_BLOCK_FLOATS = 1 << 27
+
+
+def _bucket(n, step):
+    return max(step, -(-n // step) * step)
+
+
+def _padr(a, n, fill=0):
+    if a.shape[0] >= n:
+        return a[:n]
+    return np.concatenate(
+        [a, np.full((n - a.shape[0], *a.shape[1:]), fill, a.dtype)])
+
+
+def global_bundle_adjustment(cfg, m: MapState, n_iters: int = 10,
+                             cull_outliers: bool = True,
+                             use_lock: bool = False) -> bool:
+    """Full-map BA on ``cfg.device``.  Returns False only for degenerate
+    maps.  Gauge: the two oldest keyframes are frozen."""
+    lock = m.lock if use_lock else contextlib.nullcontext()
+    with lock:
+        snap = _assemble_gba(cfg, m)
+    if snap is None:
+        return False
+    out = _solve_gba(cfg, snap, n_iters)
+    with lock:
+        _apply_gba(cfg, m, snap, out, cull_outliers)
+    return True
+
+
+def _assemble_gba(cfg, m: MapState):
+    kfs = np.nonzero(m.kf_valid)[0].astype(np.int32)
+    if kfs.size < 3:
+        return None
+    obs_cnt = m.landmark_obs_count()
+    lms = np.nonzero(m.lm_valid & (obs_cnt >= 2))[0].astype(np.int32)
+    if lms.size < 20:
+        return None
+
+    okf, okp, olm = m.observations(kfs)
+    sel = np.zeros(m.max_lm, bool)
+    sel[lms] = True
+    keep = sel[olm]
+    okf, okp, olm = okf[keep], okp[keep], olm[keep]
+
+    K = _bucket(kfs.size, 8)
+    M = _bucket(lms.size, 2048)
+    O = _bucket(okf.size, 8192)
+
+    kf_index = np.full(m.max_kf, -1, np.int64)
+    kf_index[kfs] = np.arange(kfs.size)
+    lm_index = np.full(m.max_lm, -1, np.int64)
+    lm_index[lms] = np.arange(lms.size)
+
+    order = np.argsort(m.kf_timestamp[kfs], kind="stable")
+    fixed = np.zeros(kfs.size, np.float32)
+    fixed[order[:2]] = 1.0
+
+    R_all = _padr(m.kf_R[kfs], K)
+    R_all[kfs.size:] = np.eye(3)
+    return dict(kfs=kfs, lms=lms, okf=okf, okp=okp, fixed=fixed,
+                kf_index=kf_index, K=K, M=M,
+                R_all=R_all, t_all=_padr(m.kf_t[kfs], K),
+                fixed_p=_padr(fixed, K, 1.0), X=_padr(m.lm_pos[lms], M),
+                lm_mask=_padr(np.ones(lms.size, np.float32), M),
+                op=_padr(kf_index[okf].astype(np.int32), O),
+                ol=_padr(lm_index[olm].astype(np.int32), O),
+                ouv=_padr(m.kf_kp_uv[okf, okp], O),
+                olev=_padr(m.kf_kp_level[okf, okp], O),
+                omask=_padr(np.ones(okf.size, np.float32), O),
+                # pre-solve poses, for rows created before the write-back
+                R_old=m.kf_R[kfs].copy(), t_old=m.kf_t[kfs].copy(),
+                snap_next_kf=m.next_kf, snap_next_lm=m.next_lm)
+
+
+def _solve_gba(cfg, s, n_iters):
+    assembly = ("dense" if s["K"] * s["M"] * 18 <= DENSE_CROSS_BLOCK_FLOATS
+                else "pcg")
+    dev = torch.device(cfg.device)
+
+    def t(name):
+        return torch.as_tensor(s[name], device=dev)
+
+    R, tr, X_new, chi2, _ = bundle_adjust(
+        cfg.project_fn, cfg.project_jac_fn, t("R_all"), t("t_all"),
+        t("fixed_p"), t("X"), t("lm_mask"), t("op"), t("ol"), t("ouv"),
+        t("olev"), t("omask"), n_iters=n_iters, assembly=assembly)
+    return {k: v.cpu().numpy() for k, v in
+            dict(R=R, t=tr, X_new=X_new, chi2=chi2).items()}
+
+
+def _apply_gba(cfg, m, s, out, cull_outliers):
+    kfs, lms, okf, okp = s["kfs"], s["lms"], s["okf"], s["okp"]
+    fixed, kf_index = s["fixed"], s["kf_index"]
+    upd = kfs[fixed == 0]
+    upd = upd[m.kf_valid[upd]]           # culled since the snapshot
+    m.kf_R[upd] = out["R"][kf_index[upd]]
+    m.kf_t[upd] = out["t"][kf_index[upd]]
+    live = lms[m.lm_valid[lms]]
+    lm_index = np.full(m.max_lm, -1, np.int64)
+    lm_index[lms] = np.arange(lms.size)
+    m.lm_pos[live] = out["X_new"][lm_index[live]]
+
+    # Rows created since the snapshot: correct through the newest snapshot
+    # keyframe, T_child_new = T_child_old . T_ref_old^-1 . T_ref_new
+    # (the reference's spanning-tree mTcwGBA propagation).
+    if m.next_kf > s["snap_next_kf"] or m.next_lm > s["snap_next_lm"]:
+        i = {int(k): j for j, k in enumerate(kfs)}[int(kfs[-1])]
+        R_d = s["R_old"][i].T @ out["R"][i]
+        t_d = s["R_old"][i].T @ (out["t"][i] - s["t_old"][i])
+        new_kfs = np.arange(s["snap_next_kf"], m.next_kf)
+        new_kfs = new_kfs[m.kf_valid[new_kfs]]
+        for c in new_kfs:
+            m.kf_R[c] = (m.kf_R[c] @ R_d).astype(np.float32)
+            m.kf_t[c] = (m.kf_t[c] + m.kf_R[c] @ (R_d.T @ t_d)).astype(
+                np.float32)
+        new_lms = np.arange(s["snap_next_lm"], m.next_lm)
+        new_lms = new_lms[m.lm_valid[new_lms]]
+        if new_lms.size:
+            Ro, to = s["R_old"][i], s["t_old"][i]
+            Rn, tn = out["R"][i], out["t"][i]
+            pc = m.lm_pos[new_lms] @ Ro.T + to
+            m.lm_pos[new_lms] = (pc - tn) @ Rn
+
+    if cull_outliers:
+        bad = out["chi2"][: okf.size] > CHI2_MONO
+        m.kf_kp_lm[okf[bad], okp[bad]] = NO_LM
+        orphan = np.nonzero(m.lm_valid & (m.landmark_obs_count() < 2))[0]
+        if orphan.size:
+            m.remove_landmarks(orphan)
+    m.change_idx += 1

@@ -5,7 +5,8 @@ Counterpart of ``orb_slam3_study_kr_tpu/pipeline/tracking.py``
 stages, mirroring the state machine of ORB-SLAM3's Tracking — monocular
 initialization, the whole-frame fused slice (flow anchor + motion model +
 local-map rounds), the split fallback (motion model, reference keyframe,
-local map), the keyframe decision and synchronous local mapping.  Heavy
+local map), the keyframe decision, synchronous local mapping and the
+loop-closing callback per keyframe, and localization-only mode.  Heavy
 compute runs on ``cfg.device``; this file moves indices around in numpy.
 """
 
@@ -187,16 +188,19 @@ class MonoTracker:
     torch.Generator seeded with ``cfg.seed``."""
 
     def __init__(self, cfg: TrackerConfig, slam_map: MapState, local_mapper=None,
-                 relocalizer=None, on_tracking_lost=None, ransac_sets_fn=None):
+                 loop_closer=None, relocalizer=None, on_tracking_lost=None,
+                 ransac_sets_fn=None):
         cfg.check_supported()
         self.cfg = cfg
         self.device = torch.device(cfg.device)
         self.map = slam_map
         self.local_mapper = local_mapper
-        self.relocalizer = relocalizer
+        self.loop_closer = loop_closer          # callable(kf_id) -> bool
+        self.relocalizer = relocalizer          # callable(frame) -> bool
         self.on_tracking_lost = on_tracking_lost
         self.ransac_sets_fn = ransac_sets_fn
         self.lost_counter = 0
+        self.last_ok_ts = None  # timestamp of the last OK-tracked frame
         self.state = TrackState.NOT_INITIALIZED
         self.init_ref = None
         self.last_frame = None
@@ -205,6 +209,7 @@ class MonoTracker:
         self.last_kf_frame_id = -1
         self.ref_kf = -1
         self.trajectory = []
+        self.only_tracking = False  # localization mode: no map mutation
         self._speed_hist = []
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.stats = {"n_frames": 0, "n_kf": 0, "track_fail": 0,
@@ -429,7 +434,10 @@ class MonoTracker:
             self.lost_counter += 1
             self._lost_pose_estimate(frame)
             self.velocity = None
-            if (self._lost_deadline_passed(frame)
+            # Never spawn a map in localization-only mode: the map is
+            # frozen, keep trying to relocalize against it.
+            if (not self.only_tracking
+                    and self._lost_deadline_passed(frame)
                     and self.on_tracking_lost is not None):
                 self.state = TrackState.LOST
                 self.on_tracking_lost()
@@ -496,11 +504,13 @@ class MonoTracker:
         self.state = TrackState.OK
         frame.pose_ok = True
         frame.ref_kf = self.ref_kf
+        self.last_ok_ts = frame.timestamp
         Rl, tl = self.last_frame.R_cw, self.last_frame.t_cw
         Rlw_inv, tlw_inv = _np_se3_inverse(np.asarray(Rl), np.asarray(tl))
         self.velocity = _np_se3_compose(np.asarray(frame.R_cw),
                                         np.asarray(frame.t_cw), Rlw_inv, tlw_inv)
-        if self._need_new_keyframe(frame, n_inliers):
+        # Localization-only mode never inserts keyframes (mbOnlyTracking).
+        if not self.only_tracking and self._need_new_keyframe(frame, n_inliers):
             self._create_keyframe(frame)
 
     # ------------------------------------------------------------------
@@ -550,6 +560,8 @@ class MonoTracker:
         """Photometric verification + sub-pixel refinement of descriptor
         matches against the landmarks' canonical patches."""
         cfg, m = self.cfg, self.map
+        if frame.pyr is None:     # a frame built without its pyramid
+            return matched_lm
         mask = (matched_lm != NO_LM) & (frame.kp_lm == NO_LM)
         if not mask.any():
             return matched_lm
@@ -1008,6 +1020,16 @@ class MonoTracker:
                 self.local_mapper.run_once()
             frame.R_cw = m.kf_R[kf].copy()
             frame.t_cw = m.kf_t[kf].copy()
+        if self.loop_closer is not None:
+            with self.timers.stage("loop/detect_correct"):
+                loop_hit = self.loop_closer(kf)
+                self._sync()
+            if loop_hit:
+                # Loop corrected: poses moved; refresh the frame pose and
+                # drop the velocity model.
+                frame.R_cw = m.kf_R[kf].copy()
+                frame.t_cw = m.kf_t[kf].copy()
+                self.velocity = None
 
     # ------------------------------------------------------------------
     def _record_trajectory(self, frame: Frame):

@@ -1,17 +1,18 @@
 """Bundle adjustment as dense-block Levenberg-Marquardt with the Schur
 complement over landmarks.
 
-Counterpart of ``orb_slam3_study_kr_tpu/solvers/local_ba.py`` (the dense
-assembly, which serves the two-keyframe init BA and local BA on the
-monocular main path):
+Counterpart of ``orb_slam3_study_kr_tpu/solvers/local_ba.py``:
 
 - observations are flat index arrays (pose_idx, landmark_idx, uv, level,
   mask) — the bipartite graph as COO;
 - per-pose 6x6 and per-landmark 3x3 blocks come from index_add segment
   sums;
-- landmark elimination inverts (M, 3, 3) blocks in batch and the reduced
-  camera system S = Hpp - W Hll^-1 W^T is built from the dense
-  (K, M, 6, 3) cross block and solved densely;
+- landmark elimination inverts (M, 3, 3) blocks in batch;
+- ``assembly="dense"`` (the init BA and local BA) builds the reduced camera
+  system S = Hpp - W Hll^-1 W^T from the dense (K, M, 6, 3) cross block and
+  solves it densely; ``assembly="pcg"`` (global BA on large maps) never
+  forms the cross block and solves S matrix-free with block-Jacobi
+  preconditioned conjugate gradients, two segment-sum sweeps per matvec;
 - LM damping with accept/reject stays on the device.
 
 The caller culls observations whose final chi2 exceeds the 5.991 gate.
@@ -29,13 +30,70 @@ def _diag(Hb, n):
     return eye * Hb * eye
 
 
+def _seg_sum(n, idx, vals):
+    return torch.zeros((n, *vals.shape[1:]), dtype=vals.dtype,
+                       device=vals.device).index_add_(0, idx, vals)
+
+
+def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg):
+    """Matrix-free solve of the reduced camera system S dp = rhs.
+
+    S v = Hpp_d v - W Hll_inv W^T v is two segment-sum sweeps over the
+    observations (W is never formed); the block-Jacobi preconditioner uses
+    the exact diagonal blocks of S (a pose/landmark pair has at most one
+    observation, so the correction is one segment-sum of Y E^T)."""
+    K = Hpp_d.shape[0]
+    M = Hll_inv.shape[0]
+    dt = Hpp_d.dtype
+    freeK = (1.0 - fixed)[:, None]
+    Y = torch.einsum("nab,nbc->nac", E, Hll_inv[obs_lm])        # (O, 6, 3)
+    rhs = -(bp - _seg_sum(K, obs_pose, torch.einsum("nab,nb->na", Y,
+                                                    bl[obs_lm])))
+    rhs = rhs * freeK
+    Dk = Hpp_d - _seg_sum(K, obs_pose, torch.einsum("nab,ncb->nac", Y, E))
+    eye6 = torch.eye(6, dtype=dt, device=Hpp_d.device)
+    Dk = Dk * freeK[..., None] + eye6[None] * fixed[:, None, None]
+    Minv = torch.linalg.inv(Dk)
+
+    def matvec(v):
+        v = v * freeK
+        u = torch.einsum("kab,kb->ka", Hpp_d, v)
+        tv = _seg_sum(M, obs_lm, torch.einsum("nab,na->nb", E, v[obs_pose]))
+        z = torch.einsum("mab,mb->ma", Hll_inv, tv)
+        u2 = _seg_sum(K, obs_pose, torch.einsum("nab,nb->na", E, z[obs_lm]))
+        return (u - u2) * freeK
+
+    x = torch.zeros((K, 6), dtype=dt, device=Hpp_d.device)
+    r = rhs
+    z = torch.einsum("kab,kb->ka", Minv, r)
+    p = z
+    rz = torch.sum(r * z)
+    zero = torch.zeros((), dtype=dt, device=Hpp_d.device)
+    for _ in range(n_cg):
+        Ap = matvec(p)
+        denom = torch.sum(p * Ap)
+        alpha = torch.where(torch.abs(denom) > 1e-20, rz / denom, zero)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = torch.einsum("kab,kb->ka", Minv, r)
+        rz_new = torch.sum(r * z)
+        beta = torch.where(torch.abs(rz) > 1e-20, rz_new / rz, zero)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
 def bundle_adjust(project_fn, project_jac_fn,
                   R_cw, t_cw, fixed,            # (K,3,3), (K,3), (K,) 1 = frozen
                   X, lm_mask,                   # (M,3), (M,) 1 = live landmark
                   obs_pose, obs_lm, obs_uv, obs_level, obs_mask,
                   n_iters: int = 10, use_huber: bool = True,
-                  init_lambda: float = 1e-4):
-    """Returns (R_cw, t_cw, X, final_chi2 (O,), final_cost)."""
+                  init_lambda: float = 1e-4, assembly: str = "dense",
+                  n_cg: int = 60):
+    """Returns (R_cw, t_cw, X, final_chi2 (O,), final_cost).  ``assembly``
+    is "dense" or "pcg" (see the module docstring)."""
+    if assembly not in ("dense", "pcg"):
+        raise ValueError(f"bundle_adjust: unknown assembly {assembly!r}")
     K = R_cw.shape[0]
     M = X.shape[0]
     dt = R_cw.dtype
@@ -68,10 +126,6 @@ def bundle_adjust(project_fn, project_jac_fn,
             cost = torch.sum(chi2 * valid)
         return r, J_pose, J_point, w, chi2, cost
 
-    def seg_sum(n, idx, vals):
-        return torch.zeros((n, *vals.shape[1:]), dtype=dt,
-                           device=dev).index_add_(0, idx, vals)
-
     free_pose = (1.0 - fixed)[obs_pose]
     fixd = fixed.repeat_interleave(6)
     R_all, t_all, X_all = R_cw, t_cw, X
@@ -80,27 +134,31 @@ def bundle_adjust(project_fn, project_jac_fn,
     for _ in range(n_iters):
         r, J_pose, J_point, w, chi2, _ = compute(R_all, t_all, X_all)
         Jp = J_pose * free_pose[:, None, None]
-        Hpp = seg_sum(K, obs_pose, torch.einsum("nia,n,nib->nab", Jp, w, Jp))
-        bp = seg_sum(K, obs_pose, torch.einsum("nia,n,ni->na", Jp, w, r))
-        Hll = seg_sum(M, obs_lm, torch.einsum("nia,n,nib->nab", J_point, w,
+        Hpp = _seg_sum(K, obs_pose, torch.einsum("nia,n,nib->nab", Jp, w, Jp))
+        bp = _seg_sum(K, obs_pose, torch.einsum("nia,n,ni->na", Jp, w, r))
+        Hll = _seg_sum(M, obs_lm, torch.einsum("nia,n,nib->nab", J_point, w,
                                               J_point))
-        bl = seg_sum(M, obs_lm, torch.einsum("nia,n,ni->na", J_point, w, r))
+        bl = _seg_sum(M, obs_lm, torch.einsum("nia,n,ni->na", J_point, w, r))
         E = torch.einsum("nia,n,nib->nab", Jp, w, J_point)   # (O, 6, 3)
 
         Hll_d = Hll + lam * (eye3[None] + _diag(Hll, 3))
         Hpp_d = Hpp + lam * (eye6[None] + _diag(Hpp, 6))
         Hll_inv = torch.linalg.inv(Hll_d) * lm_mask[:, None, None]
 
-        # Dense cross block W (K, M, 6, 3) and the reduced camera system.
-        W = seg_sum(K * M, cell, E).reshape(K, M, 6, 3)
-        Wi = torch.einsum("kmab,mbc->kmac", W, Hll_inv)
-        S = -torch.einsum("kmac,lmbc->kalb", Wi, W).reshape(6 * K, 6 * K)
-        S = S + torch.block_diag(*Hpp_d)
-        rhs = -(bp - torch.einsum("kmab,mb->ka", Wi, bl)).reshape(6 * K)
-        S = S * (1 - fixd)[:, None] * (1 - fixd)[None, :] + torch.diag(fixd)
-        dp = torch.linalg.solve(S, rhs).reshape(K, 6)
+        if assembly == "dense":
+            # Dense cross block W (K, M, 6, 3) and the reduced camera system.
+            W = _seg_sum(K * M, cell, E).reshape(K, M, 6, 3)
+            Wi = torch.einsum("kmab,mbc->kmac", W, Hll_inv)
+            S = -torch.einsum("kmac,lmbc->kalb", Wi, W).reshape(6 * K, 6 * K)
+            S = S + torch.block_diag(*Hpp_d)
+            rhs = -(bp - torch.einsum("kmab,mb->ka", Wi, bl)).reshape(6 * K)
+            S = S * (1 - fixd)[:, None] * (1 - fixd)[None, :] + torch.diag(fixd)
+            dp = torch.linalg.solve(S, rhs).reshape(K, 6)
+        else:
+            dp = _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm,
+                            fixed, n_cg)
 
-        Wtdp = seg_sum(M, obs_lm, torch.einsum("nab,na->nb", E, dp[obs_pose]))
+        Wtdp = _seg_sum(M, obs_lm, torch.einsum("nab,na->nb", E, dp[obs_pose]))
         dl = -torch.einsum("mab,mb->ma", Hll_inv, bl + Wtdp)
 
         dR, dtr = exp_se3(dp)

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (K1 fast_nms_blur, K2 gated_nn) against
-their plain PyTorch versions on the card.  CUDA kernels have no CPU mode:
+"""The hand-written CUDA kernels (K1 fast_nms_blur, K2 gated_nn, K3
+hamming_nn) against their plain PyTorch versions on the card.  CUDA kernels have no CPU mode:
 these tests skip where no card is present.  On a GPU machine run
 
     python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from orb_slam3_study_kr_tpu_torch.ops import cuda_fast, cuda_matching
+from orb_slam3_study_kr_tpu_torch.ops import cuda_fast, cuda_hamming, cuda_matching
+from orb_slam3_study_kr_tpu_torch.ops import track_match
 
 pytestmark = pytest.mark.gpu
 
@@ -85,3 +86,46 @@ def test_wrappers_count_launches(dev):
     cuda_matching.gated_nn(*args)
     cuda_matching.gated_nn_plain(*args)
     assert cuda_matching.gated_nn.launches == n0 + 1
+
+
+@pytest.mark.parametrize("T", [1, 255, 1000, 1001])
+def test_k3_kernel_matches_plain(dev, T):
+    """(best, second, idx) identical for any T, with invalid queries and
+    targets, an all-invalid batch row, ties among 6 prototypes, and the
+    loop window layout (shared queries, batched targets, and the column
+    pass with the sides swapped); match_by_descriptor equal to its dense
+    form."""
+    g = torch.Generator(device=dev).manual_seed(T)
+    Q, W = 1000, 11
+    proto = (torch.rand((6, 256), generator=g, device=dev) < 0.5).to(torch.uint8)
+    q = proto[torch.randint(0, 6, (Q,), generator=g, device=dev)]
+    t = proto[torch.randint(0, 6, (W, T), generator=g, device=dev)]
+    flip = torch.rand((W, T, 256), generator=g, device=dev) < 0.02
+    t = torch.where(flip, 1 - t, t).contiguous()
+    qv = torch.rand(Q, generator=g, device=dev) < 0.9
+    tv = torch.rand((W, T), generator=g, device=dev) < 0.75
+    tv[3] = False
+    for args in ((q, qv, t[0], tv[0]), (q, qv, t, tv), (t, tv, q, qv)):
+        ker = cuda_hamming.hamming_nn(*args)
+        ref = cuda_hamming.hamming_nn_plain(*args)
+        for a, b in zip(ker, ref):
+            assert torch.equal(a, b)
+    n0 = cuda_hamming.hamming_nn.launches
+    for args in ((q, qv, t[0], tv[0]), (q, qv, t, tv)):
+        a = track_match.match_by_descriptor(*args)
+        b = track_match.match_by_descriptor_plain(*args)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert cuda_hamming.hamming_nn.launches == n0 + 4
+
+
+def test_k3_wrapper_checks(dev):
+    q = torch.zeros((4, 256), dtype=torch.uint8, device=dev)
+    v = torch.ones(4, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="dtype|is torch"):
+        cuda_hamming.hamming_nn(q.float(), v, q, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_hamming.hamming_nn(q, v, torch.zeros((256, 4), dtype=torch.uint8,
+                                                  device=dev).T, v)
+    with pytest.raises(ValueError, match="on cpu"):
+        cuda_hamming.hamming_nn(q, v, q.cpu(), v)

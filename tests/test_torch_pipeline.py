@@ -185,9 +185,11 @@ def test_mono_slam_smoke_session_matches_reference(reference):
     assert err < 1e-3, err
 
 
-def _run_port(render, R_gt, t_gt):
+def _run_port(render, R_gt, t_gt, enable_loop_closing=False):
     n = R_gt.shape[0]
-    slam = _port_system()
+    slam = SlamSystem(SystemConfig(tracker=TrackerConfig(fps=10),
+                                   enable_loop_closing=enable_loop_closing,
+                                   device="cpu"))
     for i in range(n):
         slam.track_monocular(render(i), i * 0.1)
     rows = slam.trajectory()
@@ -223,15 +225,15 @@ def test_mono_slam_textured_lateral_port(tmp_path):
 
 @pytest.mark.slow
 def test_mono_slam_blob_orbit_robustness_port():
-    """The reference's blob-field orbit walls on the port.  The reference
-    test runs with loop closing on; the port runs it off, its only route.
-    Never LOST, n_kf >= 2, nm >= 15, ATE < 0.25."""
+    """The reference's blob-field orbit walls on the port, with loop closing
+    on as the reference runs it (tests/test_pipeline.py).  Never LOST,
+    n_kf >= 2, nm >= 15, ATE < 0.25."""
     rng = np.random.default_rng(5)
     scene = synthetic.make_scene(rng, n_points=700)
     R_gt, t_gt = synthetic.circular_trajectory(30, radius=1.2, span=0.35)
     slam, _, rmse, nm = _run_port(
         lambda i: synthetic.render(scene, R_gt[i], t_gt[i], rng=rng)[0],
-        R_gt, t_gt)
+        R_gt, t_gt, enable_loop_closing=True)
     stats = slam.stats()
     assert slam.state in (TrackState.OK, TrackState.RECENTLY_LOST), stats
     assert stats["n_kf"] >= 2
@@ -244,6 +246,13 @@ def test_port_imports_no_jax():
             "import orb_slam3_study_kr_tpu_torch.pipeline\n"
             "import orb_slam3_study_kr_tpu_torch.convert\n"
             "import orb_slam3_study_kr_tpu_torch.ops.cuda_lib\n"
+            "import orb_slam3_study_kr_tpu_torch.ops.cuda_hamming\n"
+            "import orb_slam3_study_kr_tpu_torch.bow\n"
+            "import orb_slam3_study_kr_tpu_torch.pipeline.loop_closing\n"
+            "import orb_slam3_study_kr_tpu_torch.pipeline.global_ba\n"
+            "import orb_slam3_study_kr_tpu_torch.solvers.pnp\n"
+            "import orb_slam3_study_kr_tpu_torch.solvers.sim3_solver\n"
+            "import orb_slam3_study_kr_tpu_torch.solvers.pose_graph\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('orb_slam3_study_kr_tpu.'))\n"
             "assert not bad, bad\n"
@@ -265,16 +274,48 @@ def test_cuda_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(enable_loop_closing=True),
+    dict(enable_loop_closing=True, ba_devices=2),
     dict(async_mapping=True),
     dict(sensor="stereo"),
+    dict(sensor="mono-inertial"),
     dict(tracker=TrackerConfig(camera_model="kb8")),
-], ids=["loop_closing", "async_mapping", "stereo", "kb8"])
+], ids=["loop_closing", "async_mapping", "stereo", "mono_inertial", "kb8"])
 def test_unported_routes_raise(kw):
+    """Loop closing itself is ported (the default config no longer
+    raises); its multi-device global BA is not."""
     cfg = dict(enable_loop_closing=False, device="cpu")
     cfg.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlamSystem(SystemConfig(**cfg))
+
+
+def test_default_config_runs_and_merge_raises():
+    """SystemConfig() (loop closing on) builds on the CPU; once a second
+    map exists beside a stored map with a recognition index, the unported
+    map merge raises instead of returning quietly."""
+    from orb_slam3_study_kr_tpu_torch.bow import KeyframeDatabase, train_vocabulary
+
+    slam = SlamSystem(SystemConfig(device="cpu"))
+    assert slam.cfg.enable_loop_closing and slam.loop_closer is None
+    rng = np.random.default_rng(0)
+    m0 = slam.atlas.active_map
+    n = m0.max_kp
+    kf = m0.add_keyframe(np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+                         rng.uniform(0, 400, (n, 2)).astype(np.float32),
+                         np.zeros(n, np.int32), np.zeros(n, np.float32),
+                         np.ones(n, bool),
+                         rng.integers(0, 2, (n, 256)).astype(np.uint8), 0, 0.0)
+    slam.voc = train_vocabulary(m0.kf_desc[kf], k=4, L=2)
+    slam.db = KeyframeDatabase(slam.voc)
+    slam.map_dbs[m0.map_id] = slam.db
+    slam.db.add(kf, m0.kf_desc[kf], m0.kf_kp_valid[kf])
+    assert not slam._try_merge(kf)          # one map: nothing to merge
+    slam.cfg.min_kf_spawn = 1               # store the map on loss
+    slam._on_tracking_lost()
+    assert len(slam.atlas.maps) == 2 and slam.loop_closer is not None
+    assert slam.atlas.active_map is not m0
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+        slam._try_merge(0)
 
 
 def test_config_conversion_from_reference_fields():
