@@ -7,13 +7,21 @@ Needs one CUDA card and nvcc.  Phases, one printed line each:
   1. the card (nvidia-smi name and power limit);
   2. build of the hand-written kernels from csrc/ (one nvcc per source, in
      parallel, then one link);
-  3. K1 (fast_nms_blur) against its plain PyTorch version at the 8 pyramid
-     level sizes of a rendered 752x480 frame;
+  3. K1 (fast_nms_blur_pyramid) against its plain PyTorch version over the
+     8-level pyramid of a rendered 752x480 frame, in one launch;
   4. K2 (gated_nn) against its plain version at N = total_slots, L = 4096
-     with gates built from two rendered frames;
+     with gates built from two rendered frames, on bits and packed words;
   5. K3 (hamming_nn) and match_by_descriptor against their plain versions:
      frame B's features against frame A's, an 11-set window batch, a tie
      case with invalid targets and an all-invalid batch row, T = 1 and 1001;
+Phases 3-5 also time each kernel three ways: its device time per launch
+(CUDA events around 100 back-to-back launches of the bare kernel on inputs
+prepared once, queued behind a device-side sleep so that the host's enqueue
+time stays outside the window), its route time per call (the wrapper as
+the main path calls it, host time included: wall clock over back-to-back
+calls ending in a synchronize) and the plain version's time per call the
+same way; and they compute its bound from this run's inputs (the larger of
+bytes over 3.35 TB/s and operations over 67 T/s).
   6. the loop-closing-off main path: an 18-frame monocular session on the
      lateral textured world through SlamSystem.track_monocular;
   7. the default configuration (loop closing on): the 40-frame lateral
@@ -27,6 +35,9 @@ before it and reads them just after; the kernels line sums them.  Any
 failure raises (non-zero exit).  Before the last two lines the script prints
 its own seconds; the line before the last is the kernels JSON; the last line
 is {"ok": true, "device": {...}}.  Imports only the port, torch and numpy.
+In the kernels JSON, `ms` is the route time per call, timed as `plain_ms`
+is (`route_ms` carries the same number under the name the phases print),
+and `device_ms` the bare kernel's time per launch.
 """
 
 import argparse
@@ -48,22 +59,45 @@ PKG = "orb_slam3_study_kr_tpu_torch"
 # match_by_descriptor's (idx, ok, best).
 BLUR_TOL = 1e-4
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
+# the float32 rate outside the tensor cores, which the integer and
+# compare work of these kernels is counted against.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+# Operations per unit of work, counted from the algorithm each kernel runs:
+# K1 per pixel: FAST 16 differences + 2 polarities x (42 shared arc
+# min/max + 15 max over the arcs) + 3, NMS 8 max + 2 thresholds + 2 maps x
+# 3 compare/select, 2 blur passes x (7 mul + 6 add): 175.
+K1_OPS_PER_PX = 16 + 2 * (42 + 15) + 3 + (8 + 2 + 2 * 3) + 2 * 13
+# K2/K3 per pair: the gates (2 differences, 2 |.| <= r compares, a level
+# difference and its 2 compares, 3 ands) = 10; a pair that passes adds 8
+# xor, 8 popcounts and 8 adds or compares = 24.  K3's gate is 1 validity
+# test.
+GATE_OPS, PAIR_OPS = 10, 24
 
-def _median_ms(fn, n=30, warmup=5):
+
+def _bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the memory and the compute time."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _per_call_ms(fn, n=50, repeats=3):
+    """Median over `repeats` of the wall time per call of n back-to-back
+    calls ending in a synchronize: what a caller pays, host or device."""
     import torch
-    for _ in range(warmup):
+    for _ in range(5):
         fn()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / n)
+    return sorted(out)[len(out) // 2]
 
 
 def phase_card():
@@ -88,45 +122,50 @@ def phase_build():
 
 def phase_k1(dev, frame_img):
     import torch
+    from orb_slam3_study_kr_tpu_torch.utils.profiling import device_ms_per_launch
     from orb_slam3_study_kr_tpu_torch.ops import cuda_fast, orb
     cfg = orb.OrbConfig()
+    th = (float(cfg.fast_min_threshold), float(cfg.fast_threshold))
     levels = orb.build_pyramid(torch.as_tensor(frame_img, device=dev), cfg)
+    ker = cuda_fast.fast_nms_blur_pyramid(levels, *th)
+    ref = cuda_fast.fast_nms_blur_pyramid_plain(levels, *th)
+    torch.cuda.synchronize()
     max_err = 0.0
     border_diff = 0
-    level_ms, level_plain_ms = [], []
-    for lvl, img in enumerate(levels):
-        img = img.contiguous()
-        ker = cuda_fast.fast_nms_blur(img, 7.0, 20.0)
-        ref = cuda_fast.fast_nms_blur_plain(img, 7.0, 20.0)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("s_raw", "s20", "s7"), ker[:3], ref[:3]):
+    for lvl, (k, r) in enumerate(zip(ker, ref)):
+        for name, a, b in zip(("s_raw", "s20", "s7"), k[:3], r[:3]):
             bad = int((a[8:-8, 8:-8] != b[8:-8, 8:-8]).sum())
             if bad:
                 raise AssertionError(f"K1 level {lvl} {name}: {bad} interior "
                                      "pixels differ")
             border_diff += int((a != b).sum())
-        err = float((ker[3] - ref[3]).abs().max())
+        err = float((k[3] - r[3]).abs().max())
         if err > BLUR_TOL:
             raise AssertionError(f"K1 level {lvl} blur err {err} > {BLUR_TOL}")
         max_err = max(max_err, err)
-        level_ms.append(_median_ms(lambda: cuda_fast.fast_nms_blur(img, 7.0, 20.0)))
-        level_plain_ms.append(
-            _median_ms(lambda: cuda_fast.fast_nms_blur_plain(img, 7.0, 20.0)))
-    ms, plain_ms = sum(level_ms), sum(level_plain_ms)
-    print(f"phase K1: 8 levels 480x752..{tuple(levels[-1].shape)} maps exact "
-          f"on the interior ({border_diff} border pixels differ), blur "
-          f"max_abs_err {max_err:.3g}; kernel {ms:.4f} ms/frame, plain "
-          f"{plain_ms:.4f} ms/frame; per level kernel "
-          f"{[round(x, 4) for x in level_ms]}, plain "
-          f"{[round(x, 4) for x in level_plain_ms]}")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                level_ms=level_ms, level_plain_ms=level_plain_ms,
-                border_diff=border_diff)
+    launch, _ = cuda_fast.fast_nms_blur_pyramid_call(levels, *th)
+    device_ms = device_ms_per_launch(launch)
+    route_ms = _per_call_ms(lambda: cuda_fast.fast_nms_blur_pyramid(levels, *th))
+    plain_ms = _per_call_ms(
+        lambda: cuda_fast.fast_nms_blur_pyramid_plain(levels, *th), n=10)
+    px = sum(img.numel() for img in levels)
+    nbytes, ops = px * (4 + 16), px * K1_OPS_PER_PX
+    bound_ms, bound_by = _bound(nbytes, ops)
+    print(f"phase K1: one launch over 8 levels 480x752..{tuple(levels[-1].shape)}"
+          f" ({px} px), maps exact on the interior ({border_diff} border pixels"
+          f" differ), blur max_abs_err {max_err:.3g}; device {device_ms:.5f} ms"
+          f" per frame, route {route_ms:.5f} ms, plain {plain_ms:.5f} ms; bound"
+          f" {bound_ms:.5f} ms by {bound_by} (max({nbytes} B / 3.35 TB/s, "
+          f"{ops} op / 67 T/s); {K1_OPS_PER_PX} op/px), device time at "
+          f"{bound_ms / device_ms:.3f} of the bound")
+    return dict(max_abs_err=max_err, device_ms=device_ms, route_ms=route_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                px=px, bytes=nbytes, ops=ops, border_diff=border_diff)
 
 
 def phase_k2(dev, img_a, img_b):
-    import numpy as np
     import torch
+    from orb_slam3_study_kr_tpu_torch.utils.profiling import device_ms_per_launch
     from orb_slam3_study_kr_tpu_torch.ops import cuda_matching, orb
     cfg = orb.OrbConfig()
     fa = orb.extract_orb(torch.as_tensor(img_a, device=dev), cfg)
@@ -164,25 +203,54 @@ def phase_k2(dev, img_a, img_b):
     n_ok = 0
     max_err = 0.0
     for name, a in cases.items():
-        kb, ks, ki = cuda_matching.gated_nn(*a, level_slack=1)
-        pb, ps, pi = cuda_matching.gated_nn_plain(*a, level_slack=1)
-        torch.cuda.synchronize()
-        for what, x, y in (("best", kb, pb), ("second", ks, ps), ("idx", ki, pi)):
-            bad = int((x != y).sum())
-            if bad:
-                raise AssertionError(f"K2 {name} {what}: {bad} of {N} differ")
-            max_err = max(max_err, float((x.double() - y.double()).abs().max()))
-        n_ok += int((kb < 1e9).sum())
-    ms = _median_ms(lambda: cuda_matching.gated_nn(*args, level_slack=1))
-    plain_ms = _median_ms(lambda: cuda_matching.gated_nn_plain(*args, level_slack=1))
+        words = (cuda_matching.pack_desc(a[0]), *a[1:4],
+                 cuda_matching.pack_desc(a[4]), *a[5:])
+        ref = cuda_matching.gated_nn_plain(*a, level_slack=1)
+        for form, x in (("bits", a), ("words", words)):
+            ker = cuda_matching.gated_nn(*x, level_slack=1)
+            torch.cuda.synchronize()
+            for what, k, r in zip(("best", "second", "idx"), ker, ref):
+                bad = int((k != r).sum())
+                if bad:
+                    raise AssertionError(f"K2 {name} {form} {what}: {bad} of "
+                                         f"{N} differ")
+                max_err = max(max_err, float((k.double() - r.double()).abs().max()))
+        n_ok += int((ref[0] < 1e9).sum())
+    # Pairs of the real case that pass the gates (the plain version's mask).
+    d_uv = (t_uv[:, None, :] - fb.uv[None, :, :]).abs()
+    lvl = fb.level[None, :] - t_level[:, None]
+    passing = int(((d_uv[..., 0] <= t_radius[:, None])
+                   & (d_uv[..., 1] <= t_radius[:, None]) & (lvl.abs() <= 1)
+                   & t_valid[:, None] & fb.valid[None, :]).sum())
+    words = (cuda_matching.pack_desc(fb.desc), *args[1:4],
+             cuda_matching.pack_desc(t_desc), *args[5:])
+    launch, _ = cuda_matching.gated_nn_call(*words, level_slack=1)
+    device_ms = device_ms_per_launch(launch)
+    route_ms = _per_call_ms(lambda: cuda_matching.gated_nn(*words, level_slack=1))
+    plain_ms = _per_call_ms(lambda: cuda_matching.gated_nn_plain(*args, level_slack=1))
+    nbytes = N * (32 + 8 + 4 + 1) + L * (32 + 8 + 4 + 4 + 1) + N * 12
+    ops = N * L * GATE_OPS + passing * PAIR_OPS
+    bound_ms, bound_by = _bound(nbytes, ops)
+    all_ms, all_by = _bound(nbytes, N * L * (GATE_OPS + PAIR_OPS))
     print(f"phase K2: N={N} L={L} (best, second, idx) exact on {len(cases)} "
-          f"cases ({n_ok} ungated rows); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, N=N, L=L)
+          f"cases, bits and packed words ({n_ok} ungated rows); {passing} of "
+          f"{N * L} pairs pass the gates in the real case; device "
+          f"{device_ms:.5f} ms, route (packed words) {route_ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms; bound {bound_ms:.5f} ms by {bound_by} "
+          f"(max({nbytes} B / 3.35 TB/s, (N L x {GATE_OPS} + {passing} x "
+          f"{PAIR_OPS}) op / 67 T/s)), {all_ms:.5f} ms with every pair "
+          f"passing; device time at {bound_ms / device_ms:.3f} of the bound")
+    return dict(max_abs_err=max_err, device_ms=device_ms, route_ms=route_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_all_pass_ms=all_ms, pairs=N * L, pairs_passing=passing,
+                bytes=nbytes, ops=ops, N=N, L=L)
 
 
 def phase_k3(dev, img_a, img_b):
     import torch
-    from orb_slam3_study_kr_tpu_torch.ops import cuda_hamming, orb, track_match
+    from orb_slam3_study_kr_tpu_torch.utils.profiling import device_ms_per_launch
+    from orb_slam3_study_kr_tpu_torch.ops import (cuda_hamming, cuda_matching,
+                                                  orb, track_match)
     cfg = orb.OrbConfig()
     fa = orb.extract_orb(torch.as_tensor(img_a, device=dev), cfg)
     fb = orb.extract_orb(torch.as_tensor(img_b, device=dev), cfg)
@@ -209,17 +277,21 @@ def phase_k3(dev, img_a, img_b):
         "T=1001": (fb.desc, fb.valid, t_win[:2].reshape(-1, 256)[:1001].contiguous(),
                    v_win[:2].reshape(-1)[:1001].contiguous()),
     }
+    pack = cuda_matching.pack_desc
     max_err = 0.0
     n_ok = {}
     for name, a in cases.items():
         for what, args in (("rows", a), ("columns", (a[2], a[3], a[0], a[1]))):
-            ker = cuda_hamming.hamming_nn(*args)
             ref = cuda_hamming.hamming_nn_plain(*args)
-            for part, x, y in zip(("best", "second", "idx"), ker, ref):
-                bad = int((x != y).sum())
-                if bad:
-                    raise AssertionError(f"K3 {name} {what} {part}: {bad} differ")
-                max_err = max(max_err, float((x.double() - y.double()).abs().max()))
+            words = (pack(args[0]), args[1], pack(args[2]), args[3])
+            for ker in (cuda_hamming.hamming_nn(*args),
+                        cuda_hamming.hamming_nn(*words)):
+                for part, x, y in zip(("best", "second", "idx"), ker, ref):
+                    bad = int((x != y).sum())
+                    if bad:
+                        raise AssertionError(f"K3 {name} {what} {part}: {bad} "
+                                             "differ")
+                    max_err = max(max_err, float((x.double() - y.double()).abs().max()))
         km = track_match.match_by_descriptor(*a)
         pm = track_match.match_by_descriptor_plain(*a)
         for part, x, y in zip(("idx", "ok", "best"), km, pm):
@@ -230,21 +302,39 @@ def phase_k3(dev, img_a, img_b):
         raise AssertionError(f"too few descriptor matches {n_ok}")
     torch.cuda.synchronize()
     a = cases["frames"]
-    ms = _median_ms(lambda: cuda_hamming.hamming_nn(*a))
-    plain_ms = _median_ms(lambda: cuda_hamming.hamming_nn_plain(*a))
+    words = (pack(a[0]), a[1], pack(a[2]), a[3])
+    launch, _ = cuda_hamming.hamming_nn_call(*words)
+    device_ms = device_ms_per_launch(launch)
+    route_ms = _per_call_ms(lambda: cuda_hamming.hamming_nn(*words))
+    plain_ms = _per_call_ms(lambda: cuda_hamming.hamming_nn_plain(*a))
     w = cases["window"]
-    win_ms = _median_ms(lambda: cuda_hamming.hamming_nn(*w))
-    win_plain_ms = _median_ms(lambda: cuda_hamming.hamming_nn_plain(*w))
-    mbd_ms = _median_ms(lambda: track_match.match_by_descriptor(*a))
-    mbd_plain_ms = _median_ms(lambda: track_match.match_by_descriptor_plain(*a))
+    w_words = (pack(w[0]), w[1], pack(w[2]), w[3])
+    launch_w, _ = cuda_hamming.hamming_nn_call(*w_words)
+    win_device_ms = device_ms_per_launch(launch_w)
+    win_route_ms = _per_call_ms(lambda: cuda_hamming.hamming_nn(*w_words))
+    win_plain_ms = _per_call_ms(lambda: cuda_hamming.hamming_nn_plain(*w))
+    mbd_ms = _per_call_ms(lambda: track_match.match_by_descriptor(*a))
+    mbd_plain_ms = _per_call_ms(lambda: track_match.match_by_descriptor_plain(*a))
+    Q, T = a[0].shape[0], a[2].shape[0]
+    valid_pairs = int(a[1].sum()) * int(a[3].sum())
+    nbytes = Q * (32 + 1) + T * (32 + 1) + Q * 12
+    ops = Q * T + valid_pairs * PAIR_OPS
+    bound_ms, bound_by = _bound(nbytes, ops)
     print(f"phase K3: Q=T={N} and window {W}x{N}: (best, second, idx) exact in "
-          f"both passes on {len(cases)} cases, match_by_descriptor exact "
-          f"(matches {n_ok}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-          f"window kernel {win_ms:.4f} ms, plain {win_plain_ms:.4f} ms; "
-          f"match_by_descriptor {mbd_ms:.4f} ms, dense {mbd_plain_ms:.4f} ms")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, win_ms=win_ms,
-                win_plain_ms=win_plain_ms, mbd_ms=mbd_ms,
-                mbd_plain_ms=mbd_plain_ms, N=N, W=W, n_ok=n_ok)
+          f"both passes, on bits and packed words, on {len(cases)} cases, "
+          f"match_by_descriptor exact (matches {n_ok}); Q=T: device "
+          f"{device_ms:.5f} ms, route (packed words) {route_ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+          f"(max({nbytes} B / 3.35 TB/s, (Q T + {valid_pairs} x {PAIR_OPS}) "
+          f"op / 67 T/s)), device time at {bound_ms / device_ms:.3f} of the "
+          f"bound; window: device {win_device_ms:.5f} ms, route "
+          f"{win_route_ms:.5f} ms, plain {win_plain_ms:.5f} ms; "
+          f"match_by_descriptor {mbd_ms:.5f} ms, dense {mbd_plain_ms:.5f} ms")
+    return dict(max_abs_err=max_err, device_ms=device_ms, route_ms=route_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, ops=ops, win_device_ms=win_device_ms,
+                win_route_ms=win_route_ms, win_plain_ms=win_plain_ms,
+                mbd_ms=mbd_ms, mbd_plain_ms=mbd_plain_ms, N=N, W=W, n_ok=n_ok)
 
 
 class _Launches:
@@ -254,7 +344,7 @@ class _Launches:
         import torch
         from orb_slam3_study_kr_tpu_torch.ops import (cuda_fast, cuda_hamming,
                                                       cuda_matching)
-        self.wrappers = dict(fast_nms_blur=cuda_fast.fast_nms_blur,
+        self.wrappers = dict(fast_nms_blur=cuda_fast.fast_nms_blur_pyramid,
                              gated_nn=cuda_matching.gated_nn,
                              hamming_nn=cuda_hamming.hamming_nn)
         torch.cuda.synchronize()
@@ -303,8 +393,9 @@ def _lateral_session(dev, n, x_span, loop_closing):
         raise AssertionError("non-finite trajectory")
     k1, k2 = counter.counts["fast_nms_blur"], counter.counts["gated_nn"]
     fused = slam.tracker.stats.get("fused_frames", 0)
-    if k1 != 8 * n:
-        raise AssertionError(f"K1 launched {k1} times, expected {8 * n}")
+    if k1 != n:
+        raise AssertionError(f"K1 launched {k1} times, expected one per frame "
+                             f"({n})")
     if fused < 1 or k2 < 4 * fused:
         raise AssertionError(f"K2 launched {k2} times over {fused} fused frames")
     warm = np.asarray(slam.timings[5:]) * 1e3
@@ -543,24 +634,19 @@ def main(argv=None):
     paths = ("loop_off", "default", "reloc", "loop")
     launches = {k: sum(out[p]["launches"][k] for p in paths)
                 for k in ("fast_nms_blur", "gated_nn", "hamming_nn")}
-    kernels = [
-        dict(name="fast_nms_blur", route="cuda",
-             source=f"{PKG}/csrc/fast_nms_blur.cu",
-             replaces="orb_slam3_study_kr_tpu/ops/pallas_fast.py:122",
-             launches=launches["fast_nms_blur"],
-             max_abs_err=out["k1"]["max_abs_err"], ms=out["k1"]["ms"],
-             plain_ms=out["k1"]["plain_ms"]),
-        dict(name="gated_nn", route="cuda", source=f"{PKG}/csrc/gated_nn.cu",
-             replaces="orb_slam3_study_kr_tpu/ops/pallas_matching.py:144",
-             launches=launches["gated_nn"],
-             max_abs_err=out["k2"]["max_abs_err"], ms=out["k2"]["ms"],
-             plain_ms=out["k2"]["plain_ms"]),
-        dict(name="hamming_nn", route="cuda", source=f"{PKG}/csrc/hamming_nn.cu",
-             replaces="orb_slam3_study_kr_tpu/ops/pallas_matching.py:210",
-             launches=launches["hamming_nn"],
-             max_abs_err=out["k3"]["max_abs_err"], ms=out["k3"]["ms"],
-             plain_ms=out["k3"]["plain_ms"]),
-    ]
+    kernels = []
+    for name, key, src, replaces in (
+            ("fast_nms_blur", "k1", "fast_nms_blur.cu", "pallas_fast.py:122"),
+            ("gated_nn", "k2", "gated_nn.cu", "pallas_matching.py:144"),
+            ("hamming_nn", "k3", "hamming_nn.cu", "pallas_matching.py:210")):
+        r = out[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"{PKG}/csrc/{src}",
+            replaces=f"orb_slam3_study_kr_tpu/ops/{replaces}",
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["route_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None,
+            device_ms=r["device_ms"], route_ms=r["route_ms"]))
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel never launched on the main paths: {launches}")
     out["seconds"] = time.perf_counter() - t_start

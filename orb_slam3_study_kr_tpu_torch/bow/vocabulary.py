@@ -23,6 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from orb_slam3_study_kr_tpu_torch.utils import resolve_device
+
 
 @dataclass(frozen=True)
 class BinaryVocabulary:
@@ -63,9 +65,11 @@ def _kmeans_binary(desc, k, iters=8, rng=None):
 
 
 def train_vocabulary(descriptors, k=10, L=3, seed=0,
-                     device="cpu") -> BinaryVocabulary:
+                     device="cuda") -> BinaryVocabulary:
     """Hierarchical k-means over (N, 256) uint8 {0,1} descriptors; the
-    vocabulary's tensors live on ``device``."""
+    vocabulary's tensors live on ``device`` ("cuda" raises without a
+    card)."""
+    device = resolve_device(device, "train_vocabulary(device)")
     if isinstance(descriptors, torch.Tensor):
         descriptors = descriptors.detach().cpu().numpy()
     rng = np.random.default_rng(seed)
@@ -191,12 +195,14 @@ def words_and_weights(voc, desc, valid):
     return transform(voc, desc, valid)
 
 
-def load_dbow2_text(path, device="cpu") -> TreeVocabulary:
-    """Load a DBoW2 text vocabulary (the ORBvoc.txt format).
+def load_dbow2_text(path, device="cuda") -> TreeVocabulary:
+    """Load a DBoW2 text vocabulary (the ORBvoc.txt format) onto ``device``
+    ("cuda" raises without a card).
 
     Header ``k L scoring weighting``; then one line per non-root node in id
     order (root is 0): ``parent_id is_leaf b0 .. b31 weight``.  Word ids go
     to leaves in file order, as in the reference loader."""
+    device = resolve_device(device, "load_dbow2_text(device)")
     with open(path) as f:
         header = f.readline().split()
         k, L = int(header[0]), int(header[1])
@@ -290,8 +296,10 @@ def vocabulary_checksum(voc) -> str:
     return h.hexdigest()
 
 
-def vocabulary_from_arrays(z, device="cpu"):
-    """Inverse of vocabulary_arrays (also accepts an npz mapping)."""
+def vocabulary_from_arrays(z, device="cuda"):
+    """Inverse of vocabulary_arrays (also accepts an npz mapping), onto
+    ``device`` ("cuda" raises without a card)."""
+    device = resolve_device(device, "vocabulary_from_arrays(device)")
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a, dtype), device=device)
 
@@ -318,6 +326,8 @@ def save_vocabulary(voc, path):
     np.savez_compressed(path, **vocabulary_arrays(voc))
 
 
-def load_vocabulary(path, device="cpu"):
+def load_vocabulary(path, device="cuda"):
+    """A vocabulary saved by save_vocabulary, onto ``device`` ("cuda"
+    raises without a card)."""
     return vocabulary_from_arrays(np.load(path, allow_pickle=False),
                                   device=device)

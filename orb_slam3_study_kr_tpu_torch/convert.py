@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from orb_slam3_study_kr_tpu_torch.bow.vocabulary import vocabulary_from_arrays
+from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import pack_desc_np
 from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
 from orb_slam3_study_kr_tpu_torch.pipeline.system import SystemConfig
 from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig, TrackState
@@ -78,6 +79,7 @@ def tracker_state_from_numpy(tracker, map_tables, last_frame, velocity,
     fused_block: the cached fused-frame candidate block as numpy (cand,
       ref_kf, row_of, obs, change_idx, member_idx and the pos, desc, gid,
       patch, normal, min_d, max_d, mask_all rows), or None to rebuild it.
+      The port caches the block's descriptors as K2's packed words.
     """
     m = tracker.map
     _install_map_tables(m, map_tables)
@@ -113,7 +115,8 @@ def tracker_state_from_numpy(tracker, map_tables, last_frame, velocity,
         tracker._fblk = None
         return tracker
     blk = dict(fused_block)
-    for k in ("pos", "desc", "gid", "patch", "normal", "min_d", "max_d",
+    blk["desc_words"] = pack_desc_np(blk.pop("desc"))
+    for k in ("pos", "desc_words", "gid", "patch", "normal", "min_d", "max_d",
               "mask_all"):
         blk[k] = torch.as_tensor(np.asarray(blk[k]), device=tracker.device)
     blk["cand"] = np.asarray(blk["cand"])
@@ -124,9 +127,10 @@ def tracker_state_from_numpy(tracker, map_tables, last_frame, velocity,
     return tracker
 
 
-def vocabulary_from_numpy(arrays, device="cpu"):
+def vocabulary_from_numpy(arrays, device="cuda"):
     """Port vocabulary from the reference's ``vocabulary_arrays(voc)``
-    dict (or an npz of it): same arrays, same checksum."""
+    dict (or an npz of it): same arrays, same checksum.  On the card by
+    default (raises without one); pass ``device="cpu"`` for the CPU."""
     return vocabulary_from_arrays(arrays, device=device)
 
 

@@ -9,20 +9,23 @@ kernel in ``csrc/hamming_nn.cu``; on CPU tensors it runs
 (i, j) counts only when ``q_valid[i] & t_valid[j]`` and scores BIG
 otherwise; first-index argmin; a second-best that leaves out only the
 argmin index; idx 0 and best = second = BIG for a row with no valid pair.
-Any target count T >= 1.
+Any target count T >= 1.  Descriptors are (..., 256) uint8 bits or
+(..., 8) int32 words from ``cuda_matching.pack_desc``; the kernel reads
+words, so a caller that matches a set more than once packs it once.
 """
 
 import torch
 
-from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import pack_desc
+from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import as_bits, as_words
 from orb_slam3_study_kr_tpu_torch.ops.matching import BIG, _excl_min, hamming_matrix
 
 
 def hamming_nn_plain(q_desc, q_valid, t_desc, t_valid):
-    """Dense reference: q_desc (..., Q, 256), q_valid (..., Q), t_desc
-    (..., T, 256), t_valid (..., T); leading axes broadcast.  Returns
-    (best (..., Q) f32, second (..., Q) f32, idx (..., Q) int32)."""
-    dist = hamming_matrix(q_desc, t_desc)
+    """Dense reference: q_desc (..., Q, 256) bits or (..., Q, 8) words,
+    q_valid (..., Q), t_desc (..., T, 256) or (..., T, 8), t_valid (..., T);
+    leading axes broadcast.  Returns (best (..., Q) f32, second (..., Q)
+    f32, idx (..., Q) int32)."""
+    dist = hamming_matrix(as_bits(q_desc), as_bits(t_desc))
     mask = q_valid[..., :, None] & t_valid[..., None, :]
     d = torch.where(mask, dist, torch.full_like(dist, BIG))
     idx = torch.argmin(d, dim=-1)                             # first index
@@ -44,14 +47,25 @@ def _check(name, a, dev, shape, dtype):
 
 
 def hamming_nn(q_desc, q_valid, t_desc, t_valid):
-    """K3 wrapper.  q_desc (Q, 256) or (B, Q, 256) uint8 {0,1}, q_valid
-    (Q,) or (B, Q) bool; t_desc (T, 256) or (B, T, 256) uint8, t_valid (T,)
-    or (B, T) bool.  A side without the batch axis is shared by every batch
-    row.  Returns (best, second, idx) of shape (Q,) when neither side is
-    batched, else (B, Q).  The CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors; counts launches in ``hamming_nn.launches``."""
+    """K3 wrapper.  q_desc (Q, 256) or (B, Q, 256) uint8 {0,1}, or the same
+    with (..., 8) int32 words; q_valid (Q,) or (B, Q) bool; t_desc (T, 256)
+    or (B, T, 256) uint8, or words; t_valid (T,) or (B, T) bool.  A side
+    without the batch axis is shared by every batch row.  Returns (best,
+    second, idx) of shape (Q,) when neither side is batched, else (B, Q).
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors;
+    counts launches in ``hamming_nn.launches``."""
     if q_desc.device.type == "cpu":
         return hamming_nn_plain(q_desc, q_valid, t_desc, t_valid)
+    launch, out = hamming_nn_call(q_desc, q_valid, t_desc, t_valid)
+    launch()
+    return out
+
+
+def hamming_nn_call(q_desc, q_valid, t_desc, t_valid):
+    """The CUDA half of ``hamming_nn``: checks, packs and allocates, and
+    returns (launch, (best, second, idx)); each ``launch()`` runs the
+    kernel once into those outputs on the current stream and counts it.
+    Timing ``launch`` alone gives the kernel's own time."""
     dev = q_desc.device
     if dev.type != "cuda":
         raise ValueError(f"hamming_nn: unsupported device {dev}")
@@ -66,29 +80,35 @@ def hamming_nn(q_desc, q_valid, t_desc, t_valid):
         raise ValueError(f"hamming_nn: empty problem B={B} Q={Q} T={T}")
     qb = (Bq,) if q_batched else ()
     tb = (Bt,) if t_batched else ()
-    _check("q_desc", q_desc, dev, (*qb, Q, 256), torch.uint8)
+    for name, a in (("q_desc", q_desc), ("t_desc", t_desc)):
+        if not a.is_contiguous():
+            raise ValueError(f"hamming_nn: {name} is not contiguous")
+    q_words = as_words(q_desc)
+    t_words = as_words(t_desc)
+    _check("q_desc", q_words, dev, (*qb, Q, 8), torch.int32)
     _check("q_valid", q_valid, dev, (*qb, Q), torch.bool)
-    _check("t_desc", t_desc, dev, (*tb, T, 256), torch.uint8)
+    _check("t_desc", t_words, dev, (*tb, T, 8), torch.int32)
     _check("t_valid", t_valid, dev, (*tb, T), torch.bool)
-    q_words = pack_desc(q_desc)
-    t_words = pack_desc(t_desc)
     best = torch.empty((B, Q), dtype=torch.float32, device=dev)
     second = torch.empty((B, Q), dtype=torch.float32, device=dev)
     idx = torch.empty((B, Q), dtype=torch.int32, device=dev)
     from orb_slam3_study_kr_tpu_torch.ops import cuda_lib
 
     lib = cuda_lib.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.hamming_nn(q_words.data_ptr(), q_valid.data_ptr(),
-                         t_words.data_ptr(), t_valid.data_ptr(),
-                         best.data_ptr(), second.data_ptr(), idx.data_ptr(),
-                         B, Q, T, int(not q_batched), int(not t_batched),
-                         stream)
-    cuda_lib.check(err, "hamming_nn")
-    hamming_nn.launches += 1
+    argv = (q_words.data_ptr(), q_valid.data_ptr(), t_words.data_ptr(),
+            t_valid.data_ptr(), best.data_ptr(), second.data_ptr(),
+            idx.data_ptr(), B, Q, T, int(not q_batched), int(not t_batched))
+    keep = (q_words, q_valid, t_words, t_valid, best, second, idx)
+
+    # `keep` holds the tensors whose pointers argv carries.
+    def launch(keep=keep):
+        err = lib.hamming_nn(*argv, torch.cuda.current_stream(dev).cuda_stream)
+        cuda_lib.check(err, "hamming_nn")
+        hamming_nn.launches += 1
+
     if not (q_batched or t_batched):
-        return best[0], second[0], idx[0]
-    return best, second, idx
+        return launch, (best[0], second[0], idx[0])
+    return launch, (best, second, idx)
 
 
 hamming_nn.launches = 0

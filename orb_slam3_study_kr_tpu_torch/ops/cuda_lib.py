@@ -79,8 +79,8 @@ def load():
     p = ctypes.c_void_p
     i = ctypes.c_int
     f = ctypes.c_float
-    lib.fast_nms_blur.argtypes = [p, p, p, p, p, i, i, f, f, p, p]
-    lib.fast_nms_blur.restype = i
+    lib.fast_nms_blur_pyramid.argtypes = [p, p, p, i, f, f, p, p]
+    lib.fast_nms_blur_pyramid.restype = i
     lib.gated_nn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
                              i, i, i, i, p]
     lib.gated_nn.restype = i

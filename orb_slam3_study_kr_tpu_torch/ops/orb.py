@@ -1,9 +1,9 @@
 """ORB feature extraction on torch tensors.
 
 Counterpart of ``orb_slam3_study_kr_tpu/ops/orb.py``: dense per-level FAST
-score + two-threshold NMS + 7x7 blur (one hand-written CUDA kernel per
-level on the card, ``ops/cuda_fast.py``), per-cell top-k + global
-top-quota selection, parabolic sub-pixel offsets, then ONE batched
+score + two-threshold NMS + 7x7 blur (one hand-written CUDA kernel launch
+for the whole pyramid on the card, ``ops/cuda_fast.py``), per-cell top-k +
+global top-quota selection, parabolic sub-pixel offsets, then ONE batched
 per-keypoint stage over all levels: superpatch gather, intensity-centroid
 orientation, rotated-BRIEF bits and the oriented 11x11 patch.
 
@@ -372,20 +372,20 @@ class OrbFeatures:
     patch: torch.Tensor = None  # (N, 11, 11) uint8 oriented intensity patch
 
 
-def extract_level(img_l, quota, cfg: OrbConfig):
+def extract_level(img_l, quota, cfg: OrbConfig, maps=None):
     """Dense per-level stage: FAST score, two-threshold NMS, cell select,
-    sub-pixel offsets, plus the level's 7x7 blur.  The four dense maps come
-    from ONE fused K1 launch on the card (ops/cuda_fast.py)."""
-    from orb_slam3_study_kr_tpu_torch.ops.cuda_fast import fast_nms_blur
-
+    sub-pixel offsets, plus the level's 7x7 blur.  The (4, H, W) stack of
+    dense maps (s_raw, s20, s7, blur) is ``maps`` when given (extract_orb
+    computes the whole pyramid's in one K1 launch), else one K1 launch
+    over this level (ops/cuda_fast.py)."""
     H, W = img_l.shape
-    s_raw, s20n, s7n, blurred = fast_nms_blur(
-        img_l.contiguous(), float(cfg.fast_min_threshold),
-        float(cfg.fast_threshold))
+    if maps is None:
+        from orb_slam3_study_kr_tpu_torch.ops.cuda_fast import fast_nms_blur
+        maps = fast_nms_blur(img_l.contiguous(), float(cfg.fast_min_threshold),
+                             float(cfg.fast_threshold))
+    s_raw, blurred = maps[0], maps[3]
     border = border_mask(H, W, EDGE_MARGIN - 3, img_l.device)
-    zero = torch.zeros_like(s_raw)
-    s7 = torch.where(border, s7n, zero)
-    s20 = torch.where(border, s20n, zero)
+    s20, s7 = torch.where(border, maps[1:3], 0.0).unbind(0)
     xs, ys, resp, valid = select_keypoints(s20, s7, quota, cfg.cell_size,
                                            cfg.cell_topk)
     dxm, dym = subpixel_offset_maps(s_raw)
@@ -397,9 +397,13 @@ def extract_orb(img, cfg: OrbConfig, with_pyramid: bool = False):
 
     With with_pyramid=True additionally returns the (L, H, W) blurred
     pyramid stack (levels zero-padded to level-0 size) for KLT alignment."""
+    from orb_slam3_study_kr_tpu_torch.ops.cuda_fast import fast_nms_blur_pyramid
+
     dev = img.device
     pyr = build_pyramid(img, cfg)
-    blur = [None] * cfg.n_levels
+    maps = fast_nms_blur_pyramid(pyr, float(cfg.fast_min_threshold),
+                                 float(cfg.fast_threshold))
+    blur = [m[3] for m in maps]
     H0, W0 = cfg.height, cfg.width
     xs_l, ys_l, fx_l, fy_l, resp_l, valid_l, lvl_l, uv_l = \
         [], [], [], [], [], [], [], []
@@ -407,7 +411,7 @@ def extract_orb(img, cfg: OrbConfig, with_pyramid: bool = False):
         q = cfg.level_quotas[l]
         if q == 0:
             continue
-        xs, ys, resp, valid, fx, fy, blur[l] = extract_level(pyr[l], q, cfg)
+        xs, ys, resp, valid, fx, fy, _ = extract_level(pyr[l], q, cfg, maps[l])
         # Pixel-centre alignment with the actual per-axis resize ratio.
         h_l, w_l = cfg.level_sizes[l]
         sx = _f32(W0 / w_l)
@@ -426,10 +430,6 @@ def extract_orb(img, cfg: OrbConfig, with_pyramid: bool = False):
     fx = torch.cat(fx_l)
     fy = torch.cat(fy_l)
     lvl = torch.cat(lvl_l)
-
-    for l in range(cfg.n_levels):
-        if blur[l] is None:
-            blur[l] = gaussian_blur7(pyr[l])
 
     R = SUPER_R
 

@@ -12,7 +12,7 @@ the dense masked Hamming matrix on the CPU.  Gate constants: distance band
 import torch
 
 from orb_slam3_study_kr_tpu_torch.ops.cuda_hamming import hamming_nn
-from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import gated_nn
+from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import as_words, gated_nn
 from orb_slam3_study_kr_tpu_torch.ops.matching import (BIG, TH_HIGH, _excl_min,
                                                        hamming_matrix)
 
@@ -67,8 +67,11 @@ def match_local_map(
     """SearchByProjection(Frame, vector<MapPoint*>, th): track-local-map.
 
     Optional leading batch axis on R_cw, t_cw, lm_mask and f_* (the
-    landmark block is shared).  Returns per-keypoint (lm_slot (..., N) int64,
-    ok (..., N), visible (..., L))."""
+    landmark block is shared).  lm_desc and f_desc are (..., 256) uint8
+    bits or (..., 8) int32 words (``cuda_matching.pack_desc``); a caller
+    that matches the same descriptors again passes words packed once.
+    Returns per-keypoint (lm_slot (..., N) int64, ok (..., N), visible
+    (..., L))."""
     uv_proj, visible, pred, view_cos = project_landmarks(
         project_fn, R_cw, t_cw, lm_pos, lm_normal, lm_min_dist, lm_max_dist,
         lm_mask, width, height, scale_factor, n_levels)
@@ -117,15 +120,18 @@ def match_by_descriptor(q_desc, q_valid, t_desc, t_valid, max_dist=50.0,
     (idx, best, second) for the ratio test, the column pass (targets as
     queries) gives each target's best query for the mutual check.  Both
     passes mask with both validity vectors, so idx is 0 on invalid rows.
+    Each side is packed once and its words serve both passes.
 
-    q_desc (Q, 256) / q_valid (Q,), t_desc (T, 256) / t_valid (T,); either
-    side may carry a leading batch axis (the loop window: one query set
-    against (W, T) targets, one launch per pass).  Returns (idx (..., Q)
-    int64, ok (..., Q) bool, best (..., Q) f32)."""
-    q_desc, q_valid = q_desc.contiguous(), q_valid.contiguous()
-    t_desc, t_valid = t_desc.contiguous(), t_valid.contiguous()
-    best, second, idx = hamming_nn(q_desc, q_valid, t_desc, t_valid)
-    _, _, back = hamming_nn(t_desc, t_valid, q_desc, q_valid)
+    q_desc (Q, 256) uint8 or (Q, 8) int32 words / q_valid (Q,), t_desc
+    (T, 256) or (T, 8) / t_valid (T,); either side may carry a leading
+    batch axis (the loop window: one query set against (W, T) targets, one
+    launch per pass).  Returns (idx (..., Q) int64, ok (..., Q) bool, best
+    (..., Q) f32)."""
+    q_words = as_words(q_desc).contiguous()
+    t_words = as_words(t_desc).contiguous()
+    q_valid, t_valid = q_valid.contiguous(), t_valid.contiguous()
+    best, second, idx = hamming_nn(q_words, q_valid, t_words, t_valid)
+    _, _, back = hamming_nn(t_words, t_valid, q_words, q_valid)
     idx = idx.long()
     ok = (best <= max_dist) & (best < nn_ratio * second)
     ar = torch.arange(idx.shape[-1], device=idx.device)

@@ -6,12 +6,16 @@ verification and a pose pre-solve, a motion-model round with wide gates,
 the gated wide retry, then the local-map rounds.  Each round is match (K2)
 -> KLT verify -> bind -> pose GN.  Every step runs on the device of its
 inputs with no host synchronisation; the gated retry is always computed and
-its effects masked, as in the reference program.
+its effects masked, as in the reference program.  The frame's descriptors
+are packed into K2's words once per call and shared by every round; the
+landmark block's descriptors may come packed already (the tracker caches
+them with the block).
 """
 
 import torch
 
 from orb_slam3_study_kr_tpu_torch.ops import matching, track_match
+from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import as_words
 from orb_slam3_study_kr_tpu_torch.ops.klt import klt_refine
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM
 from orb_slam3_study_kr_tpu_torch.solvers.pose_opt import optimize_pose
@@ -137,6 +141,8 @@ def fused_track_frame(
     R_last=None, t_last=None,
 ):
     """The whole per-frame tracking slice (see the module docstring).
+    lm_desc is (L, 256) uint8 bits or (L, 8) int32 words; f_desc is the
+    frame's (N, 256) uint8 bits.
 
     Returns (R, t, kp_lm, inliers, visible_round1, n_mm,
     (f_uv, f_uv_raw, moved), n_flow), all tensors on the input device."""
@@ -181,15 +187,17 @@ def fused_track_frame(
                   n_levels=n_levels, klt_zncc_min=klt_zncc_min,
                   klt_max_shift=klt_max_shift,
                   klt_distinct_min=klt_distinct_min, move_obs=move_obs)
+    f_words = as_words(f_desc)
+    lm_words = as_words(lm_desc)
 
     def run(Rc, tc, kp_lm, kp_lm_pos, mask, wide, th, slack, f_uv, f_uv_raw,
             gate=None):
         gates = ((lm_normal_w, lm_min_w, lm_max_w) if wide
                  else (lm_normal, lm_min_dist, lm_max_dist))
         return _round(project_fn, project_jac_fn, undistort_fn, Rc, tc,
-                      lm_pos, *gates, lm_desc, mask, lm_gid, lm_patch,
+                      lm_pos, *gates, lm_words, mask, lm_gid, lm_patch,
                       kp_lm, kp_lm_pos,
-                      f_uv, f_level, f_desc, f_valid, f_uv_raw, f_angle,
+                      f_uv, f_level, f_words, f_valid, f_uv_raw, f_angle,
                       pyr, level_wh, width, height, th, level_slack=slack,
                       apply_gate=gate, **common)
 
@@ -241,7 +249,7 @@ def fused_track_rounds(
 ):
     """``n_rounds`` complete rounds over one padded landmark block (the
     split path's motion-model and local-map steps), optionally after the
-    flow-anchor prologue.
+    flow-anchor prologue.  Descriptors as in ``fused_track_frame``.
 
     Returns (R, t, kp_lm, inliers, visible_round1,
     (f_uv, f_uv_raw, moved), n_flow)."""
@@ -263,12 +271,14 @@ def fused_track_rounds(
             f_uv = torch.where(move[:, None], undistort_fn(f_uv_raw), f_uv)
             moved_any = moved_any | move
     visible_r1 = None
+    f_words = as_words(f_desc)
+    lm_words = as_words(lm_desc)
     for _ in range(n_rounds):
         (R, t, kp_lm, kp_lm_pos, inl, lm_mask, visible, f_uv, f_uv_raw, mv,
          _tk) = _round(project_fn, project_jac_fn, undistort_fn, R, t,
-                       lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_desc,
+                       lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_words,
                        lm_mask, lm_gid, lm_patch, kp_lm, kp_lm_pos,
-                       f_uv, f_level, f_desc, f_valid, f_uv_raw, f_angle,
+                       f_uv, f_level, f_words, f_valid, f_uv_raw, f_angle,
                        pyr, level_wh, width, height, th, nn_ratio,
                        scale_factor, n_levels, level_slack, klt_zncc_min,
                        klt_max_shift, klt_distinct_min, move_obs)

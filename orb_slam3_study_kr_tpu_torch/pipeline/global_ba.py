@@ -21,6 +21,7 @@ import torch
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM, MapState
 from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust
 from orb_slam3_study_kr_tpu_torch.solvers.robust import CHI2_MONO
+from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
 # Above this dense cross-block size (K * M * 18 floats) the solve switches
 # to the matrix-free PCG assembly.
@@ -43,12 +44,13 @@ def global_bundle_adjustment(cfg, m: MapState, n_iters: int = 10,
                              use_lock: bool = False) -> bool:
     """Full-map BA on ``cfg.device``.  Returns False only for degenerate
     maps.  Gauge: the two oldest keyframes are frozen."""
+    dev = resolve_device(cfg.device, "TrackerConfig.device")
     lock = m.lock if use_lock else contextlib.nullcontext()
     with lock:
         snap = _assemble_gba(cfg, m)
     if snap is None:
         return False
-    out = _solve_gba(cfg, snap, n_iters)
+    out = _solve_gba(cfg, snap, n_iters, dev)
     with lock:
         _apply_gba(cfg, m, snap, out, cull_outliers)
     return True
@@ -99,10 +101,9 @@ def _assemble_gba(cfg, m: MapState):
                 snap_next_kf=m.next_kf, snap_next_lm=m.next_lm)
 
 
-def _solve_gba(cfg, s, n_iters):
+def _solve_gba(cfg, s, n_iters, dev):
     assembly = ("dense" if s["K"] * s["M"] * 18 <= DENSE_CROSS_BLOCK_FLOATS
                 else "pcg")
-    dev = torch.device(cfg.device)
 
     def t(name):
         return torch.as_tensor(s[name], device=dev)

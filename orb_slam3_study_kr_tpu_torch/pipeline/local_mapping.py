@@ -20,6 +20,7 @@ from orb_slam3_study_kr_tpu_torch.ops import track_match, triangulation_match
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM, MapState
 from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust
 from orb_slam3_study_kr_tpu_torch.solvers.robust import CHI2_MONO
+from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
 CULL_FOUND_RATIO = 0.25
 
@@ -57,9 +58,8 @@ class LocalMapper:
                                                  "n_fused": 0, "n_ba": 0,
                                                  "n_kf_culled": 0})
 
-    @property
-    def device(self):
-        return torch.device(self.cfg.device)
+    def __post_init__(self):
+        self.device = resolve_device(self.cfg.device, "TrackerConfig.device")
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)

@@ -40,6 +40,7 @@ from orb_slam3_study_kr_tpu_torch.solvers.pose_graph import (optimize_pose_graph
                                                              relative_sim3)
 from orb_slam3_study_kr_tpu_torch.solvers.sim3_solver import (optimize_sim3,
                                                               ransac_sim3)
+from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
 MIN_MAP_KFS = 12        # reference skips loop detection below 12 KFs
 COVIS_EDGE_WEIGHT = 100
@@ -84,13 +85,9 @@ class LoopCloser:
     _gen: object = None
 
     def __post_init__(self):
+        self.device = resolve_device(self.cfg.device, "TrackerConfig.device")
         if self._gen is None:
-            self._gen = torch.Generator(
-                device=torch.device(self.cfg.device)).manual_seed(17)
-
-    @property
-    def device(self):
-        return torch.device(self.cfg.device)
+            self._gen = torch.Generator(device=self.device).manual_seed(17)
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)

@@ -32,6 +32,7 @@ from orb_slam3_study_kr_tpu_torch.pipeline.tracking import (MonoTracker,
                                                             TrackState)
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM, Atlas
 from orb_slam3_study_kr_tpu_torch.solvers.pnp import ransac_pnp
+from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
 PNP_ITERS = 256
 
@@ -77,15 +78,6 @@ class SystemConfig:
                 "(ROADMAP item 16)")
 
 
-def _resolve_device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"SystemConfig.device={name!r} but CUDA is not available; pass "
-            "device='cpu' to run the plain PyTorch path")
-    return dev
-
-
 def _np(t):
     return t.detach().cpu().numpy()
 
@@ -97,7 +89,7 @@ class SlamSystem:
                  uniforms_fn=None):
         self.cfg = cfg or SystemConfig()
         self.cfg.check_supported()
-        self.device = _resolve_device(self.cfg.device)
+        self.device = resolve_device(self.cfg.device, "SystemConfig.device")
         self.cfg.tracker = dataclasses.replace(self.cfg.tracker,
                                                device=str(self.device))
         self.ransac_sets_fn = ransac_sets_fn

@@ -21,12 +21,13 @@ from orb_slam3_study_kr_tpu_torch.cameras import pinhole
 from orb_slam3_study_kr_tpu_torch.cameras.twoview import reconstruct_two_views
 from orb_slam3_study_kr_tpu_torch.lie.so3 import matrix_to_quat
 from orb_slam3_study_kr_tpu_torch.ops import klt, matching, orb, track_match
+from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import pack_desc_np
 from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
 from orb_slam3_study_kr_tpu_torch.pipeline.fused_round import (
     fused_track_frame, fused_track_rounds)
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM, MapState
 from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust, optimize_pose
-from orb_slam3_study_kr_tpu_torch.utils import StageTimers
+from orb_slam3_study_kr_tpu_torch.utils import StageTimers, resolve_device
 
 
 class TrackState(enum.Enum):
@@ -93,7 +94,9 @@ class TrackerConfig:
     sanity_std_mult: float = 1.5
     seed: int = 0
     # torch device of every stage (SlamSystem sets it from SystemConfig).
-    device: str = "cpu"
+    # "cuda" raises in every object built from this config when no card is
+    # present; the CPU runs only when asked for with device="cpu".
+    device: str = "cuda"
 
     def check_supported(self):
         """Raise NotImplementedError for reference options not ported yet."""
@@ -192,7 +195,7 @@ class MonoTracker:
                  ransac_sets_fn=None):
         cfg.check_supported()
         self.cfg = cfg
-        self.device = torch.device(cfg.device)
+        self.device = resolve_device(cfg.device, "TrackerConfig.device")
         self.map = slam_map
         self.local_mapper = local_mapper
         self.loop_closer = loop_closer          # callable(kf_id) -> bool
@@ -699,7 +702,8 @@ class MonoTracker:
 
     def _build_lm_block(self, cand, L, wide_gates=False, R_pred=None,
                         t_pred=None):
-        """Padded device-resident landmark block for the fused rounds."""
+        """Padded device-resident landmark block for the fused rounds; the
+        descriptors are packed into K2's int32 words on the host."""
         m = self.map
         with m.lock:
             cand = cand[:L]
@@ -722,7 +726,7 @@ class MonoTracker:
             block = dict(
                 lm_pos=self._t(_pad_rows(pos, L)), lm_normal=self._t(normal),
                 lm_min_dist=self._t(min_d), lm_max_dist=self._t(max_d),
-                lm_desc=self._t(_pad_rows(m.lm_desc[cand], L)),
+                lm_words=self._t(pack_desc_np(_pad_rows(m.lm_desc[cand], L))),
                 lm_patch=self._t(_pad_rows(m.lm_patch[cand], L)),
                 lm_gid=self._t(gid))
         return block, blk_mask, cand
@@ -730,7 +734,8 @@ class MonoTracker:
     def _refresh_fused_block(self, lm_ids, L):
         """(Re)build the cached fused-frame candidate block (called under
         the map lock).  Its device tensors are pose-free, so they stay valid
-        until the next map change."""
+        until the next map change; the descriptors are cached as K2's int32
+        words, packed once per rebuild."""
         m = self.map
         obs = m.landmark_obs_count()
         seen = np.zeros(m.max_lm, bool)
@@ -766,7 +771,7 @@ class MonoTracker:
             change_idx=m.change_idx, member_idx=m.member_idx, map_ref=m,
             cand=cand, ref_kf=ref_kf, row_of=row_of, obs=obs,
             pos=self._t(_pad_rows(m.lm_pos[cand], L)),
-            desc=self._t(_pad_rows(m.lm_desc[cand], L)),
+            desc_words=self._t(pack_desc_np(_pad_rows(m.lm_desc[cand], L))),
             gid=self._t(gid),
             patch=self._t(_pad_rows(m.lm_patch[cand], L)),
             normal=self._t(_pad_rows(m.lm_normal[cand], L)),
@@ -858,7 +863,7 @@ class MonoTracker:
             out = fused_track_frame(
                 cfg.project_fn, cfg.project_jac_fn, cfg.undistort_px_fn,
                 self._t(R_pred, torch.float32), self._t(t_pred, torch.float32),
-                blk["pos"], blk["desc"], blk["gid"], blk["patch"],
+                blk["pos"], blk["desc_words"], blk["gid"], blk["patch"],
                 blk["normal"], blk["min_d"], blk["max_d"],
                 blk["mask_all"], self._t(in_wide),
                 self._t(frame.kp_lm),
@@ -926,7 +931,7 @@ class MonoTracker:
                 cfg.project_fn, cfg.project_jac_fn, cfg.undistort_px_fn,
                 self._t(R0, torch.float32), self._t(t0, torch.float32),
                 block["lm_pos"], block["lm_normal"], block["lm_min_dist"],
-                block["lm_max_dist"], block["lm_desc"], self._t(blk_mask),
+                block["lm_max_dist"], block["lm_words"], self._t(blk_mask),
                 block["lm_gid"], block["lm_patch"],
                 self._t(frame.kp_lm), self._t(kp_lm_pos),
                 frame.dev("uv"), frame.dev("level"), frame.dev("desc"),

@@ -33,7 +33,7 @@ def sequence():
         frames.append((np.array(f.desc), np.array(f.valid)))
     train = np.concatenate([d[v] for d, v in frames[::2]])
     jv = jvoc.train_vocabulary(train, k=8, L=3, seed=0)
-    tv = tvoc.train_vocabulary(train, k=8, L=3, seed=0)
+    tv = tvoc.train_vocabulary(train, k=8, L=3, seed=0, device="cpu")
     return frames, jv, tv
 
 
@@ -82,7 +82,7 @@ def test_dbow2_text_and_transform_tree_exact(tmp_path, sequence):
     p = tmp_path / "voc.txt"
     _write_dbow2_text(p, 3, 3, _unbalanced_nodes(rng))
     jt = jvoc.load_dbow2_text(p)
-    tt = tvoc.load_dbow2_text(p)
+    tt = tvoc.load_dbow2_text(p, device="cpu")
     ja, ta = jvoc.vocabulary_arrays(jt), tvoc.vocabulary_arrays(tt)
     assert sorted(ja) == sorted(ta)
     for k in ja:
@@ -112,7 +112,7 @@ def test_vocabulary_roundtrip_and_checksum(tmp_path, sequence):
     d, v = (torch.as_tensor(a) for a in frames[0])
     p = tmp_path / "port.npz"
     tvoc.save_vocabulary(tv, p)
-    tv2 = tvoc.load_vocabulary(p)
+    tv2 = tvoc.load_vocabulary(p, device="cpu")
     for a, b in zip(tvoc.words_and_weights(tv, d, v),
                     tvoc.words_and_weights(tv2, d, v)):
         assert torch.equal(a, b)
@@ -120,14 +120,15 @@ def test_vocabulary_roundtrip_and_checksum(tmp_path, sequence):
     assert tvoc.vocabulary_checksum(tv2) == jvoc.vocabulary_checksum(jv)
     pj = tmp_path / "ref.npz"
     jvoc.save_vocabulary(jv, pj)
-    assert (tvoc.vocabulary_checksum(tvoc.load_vocabulary(pj))
+    assert (tvoc.vocabulary_checksum(tvoc.load_vocabulary(pj, device="cpu"))
             == jvoc.vocabulary_checksum(jv))
-    conv = convert.vocabulary_from_numpy(jvoc.vocabulary_arrays(jv))
+    conv = convert.vocabulary_from_numpy(jvoc.vocabulary_arrays(jv),
+                                         device="cpu")
     assert tvoc.vocabulary_checksum(conv) == jvoc.vocabulary_checksum(jv)
     rng = np.random.default_rng(5)
     pt = tmp_path / "voc.txt"
     _write_dbow2_text(pt, 3, 3, _unbalanced_nodes(rng))
-    assert (tvoc.vocabulary_checksum(tvoc.load_dbow2_text(pt))
+    assert (tvoc.vocabulary_checksum(tvoc.load_dbow2_text(pt, device="cpu"))
             == jvoc.vocabulary_checksum(jvoc.load_dbow2_text(pt)))
 
 

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from orb_slam3_study_kr_tpu_torch.ops import cuda_fast, cuda_hamming, cuda_matching
-from orb_slam3_study_kr_tpu_torch.ops import track_match
+from orb_slam3_study_kr_tpu_torch.ops import orb, track_match
 
 pytestmark = pytest.mark.gpu
 
@@ -37,42 +37,100 @@ def test_k1_kernel_matches_plain(dev, shape):
     assert float((ker[3] - ref[3]).abs().max()) < 1e-4
 
 
-@pytest.mark.parametrize("L", [1, 255, 4096, 5000])
-def test_k2_kernel_matches_plain(dev, L):
-    """(best, second, idx) identical, any L, with ties and gated rows."""
-    g = torch.Generator(device=dev).manual_seed(L)
-    N = 1000
-    proto = (torch.rand((6, 256), generator=g, device=dev) < 0.5).to(torch.uint8)
-    q = proto[torch.randint(0, 6, (N,), generator=g, device=dev)]
-    t = proto[torch.randint(0, 6, (L,), generator=g, device=dev)]
+def _k2_args(dev, N, L, n_proto, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    proto = (torch.rand((n_proto, 256), generator=g, device=dev) < 0.5).to(torch.uint8)
+    q = proto[torch.randint(0, n_proto, (N,), generator=g, device=dev)]
+    t = proto[torch.randint(0, n_proto, (L,), generator=g, device=dev)]
     flip = torch.rand((L, 256), generator=g, device=dev) < 0.02
     t = torch.where(flip, 1 - t, t)
-    args = (q, torch.rand((N, 2), generator=g, device=dev) * 100,
+    return (q, torch.rand((N, 2), generator=g, device=dev) * 100,
             torch.randint(0, 8, (N,), generator=g, device=dev, dtype=torch.int32),
             torch.rand(N, generator=g, device=dev) < 0.9,
             t, torch.rand((L, 2), generator=g, device=dev) * 100,
             torch.rand(L, generator=g, device=dev) * 30,
             torch.randint(0, 8, (L,), generator=g, device=dev, dtype=torch.int32),
             torch.rand(L, generator=g, device=dev) < 0.8)
-    ker = cuda_matching.gated_nn(*args, level_slack=1)
-    ref = cuda_matching.gated_nn_plain(*args, level_slack=1)
-    for a, b in zip(ker, ref):
-        assert torch.equal(a, b)
-    # Batched (the fuse step's layout): three neighbour rows.
+
+
+def _k2_equal(args, slack):
+    """The kernel on bits and on packed words against the plain version
+    on bits and on words: all four (best, second, idx) identical."""
+    words = list(args)
+    words[0] = cuda_matching.pack_desc(args[0])
+    words[4] = cuda_matching.pack_desc(args[4])
+    ref = cuda_matching.gated_nn_plain(*args, level_slack=slack)
+    for out in (cuda_matching.gated_nn(*args, level_slack=slack),
+                cuda_matching.gated_nn(*words, level_slack=slack),
+                cuda_matching.gated_nn_plain(*words, level_slack=slack)):
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+    return ref
+
+
+@pytest.mark.parametrize("L", [1, 17, 255, 511, 4096, 5000])
+def test_k2_kernel_matches_plain(dev, L):
+    """(best, second, idx) identical, any L (smaller than the cluster, a
+    ragged last chunk, chunks longer than one staged tile), on bits and on
+    packed words, with ties among 6 prototypes and gated rows; the fuse
+    step's batched layout (B = 3) too."""
+    args = _k2_args(dev, 1000, L, 6, L)
+    _k2_equal(args, 1)
     B = 3
     bargs = [a.expand(B, *a.shape) if i != 4 else a for i, a in enumerate(args)]
-    kb = cuda_matching.gated_nn(*bargs, level_slack=7)
-    rb = cuda_matching.gated_nn_plain(*bargs, level_slack=7)
-    for a, b in zip(kb, rb):
-        assert torch.equal(a, b)
+    _k2_equal(bargs, 7)
+
+
+def test_k2_kernel_ties_and_all_gated(dev):
+    """4 prototypes (nearly every distance ties), a quarter of the queries
+    invalid, then every landmark gated: idx 0 and best = second = BIG."""
+    args = list(_k2_args(dev, 1000, 4096, 4, 7))
+    args[3][:250] = False
+    best, second, idx = _k2_equal(args, 1)
+    assert bool((best[:250] == cuda_matching.BIG).all())
+    assert int((best < cuda_matching.BIG).sum()) > 100
+    args[8] = torch.zeros_like(args[8])
+    best, second, idx = _k2_equal(args, 1)
+    assert bool((best == cuda_matching.BIG).all())
+    assert bool((second == cuda_matching.BIG).all())
+    assert not bool(idx.any())
+
+
+def _pyramid(dev, sizes, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.integers(0, 255, s).astype(np.float32)
+                            + rng.random(s).astype(np.float32) * (i % 2),
+                            device=dev) for i, s in enumerate(sizes)]
+
+
+@pytest.mark.parametrize("sizes", [orb.OrbConfig().level_sizes,
+                                   ((7, 7), (33, 47), (65, 33))],
+                         ids=["752x480_pyramid", "odd_sizes"])
+def test_k1_pyramid_matches_plain(dev, sizes):
+    """One launch over all levels against the per-level plain version:
+    score and NMS maps exact (interior and border), blur within 1e-4."""
+    levels = _pyramid(dev, sizes)
+    n0 = cuda_fast.fast_nms_blur_pyramid.launches
+    ker = cuda_fast.fast_nms_blur_pyramid(levels, 7.0, 20.0)
+    assert cuda_fast.fast_nms_blur_pyramid.launches == n0 + 1
+    ref = cuda_fast.fast_nms_blur_pyramid_plain(levels, 7.0, 20.0)
+    torch.cuda.synchronize()
+    for k, r in zip(ker, ref):
+        for a, b in zip(k[:3], r[:3]):
+            assert torch.equal(a, b)
+        assert float((k[3] - r[3]).abs().max()) < 1e-4
 
 
 def test_wrappers_count_launches(dev):
+    """One K1 launch per pyramid (and per single level), one K2 launch per
+    call whether it is given bits or words; plain versions count none."""
     img = torch.zeros((64, 64), device=dev)
-    n0 = cuda_fast.fast_nms_blur.launches
+    n0 = cuda_fast.fast_nms_blur_pyramid.launches
     cuda_fast.fast_nms_blur(img, 7.0, 20.0)
     cuda_fast.fast_nms_blur_plain(img, 7.0, 20.0)
-    assert cuda_fast.fast_nms_blur.launches == n0 + 1
+    assert cuda_fast.fast_nms_blur_pyramid.launches == n0 + 1
+    cuda_fast.fast_nms_blur_pyramid([img, img[:40, :50].contiguous()], 7.0, 20.0)
+    assert cuda_fast.fast_nms_blur_pyramid.launches == n0 + 2
     N, L = 5, 7
     args = (torch.zeros((N, 256), dtype=torch.uint8, device=dev),
             torch.zeros((N, 2), device=dev),
@@ -86,13 +144,18 @@ def test_wrappers_count_launches(dev):
     cuda_matching.gated_nn(*args)
     cuda_matching.gated_nn_plain(*args)
     assert cuda_matching.gated_nn.launches == n0 + 1
+    words = list(args)
+    words[0] = cuda_matching.pack_desc(args[0])
+    words[4] = cuda_matching.pack_desc(args[4])
+    cuda_matching.gated_nn(*words)
+    assert cuda_matching.gated_nn.launches == n0 + 2
 
 
 @pytest.mark.parametrize("T", [1, 255, 1000, 1001])
 def test_k3_kernel_matches_plain(dev, T):
-    """(best, second, idx) identical for any T, with invalid queries and
-    targets, an all-invalid batch row, ties among 6 prototypes, and the
-    loop window layout (shared queries, batched targets, and the column
+    """(best, second, idx) identical for any T, on bits and on packed
+    words, with invalid queries and targets, an all-invalid batch row, ties
+    among 6 prototypes, and the loop window layout (shared queries, batched targets, and the column
     pass with the sides swapped); match_by_descriptor equal to its dense
     form."""
     g = torch.Generator(device=dev).manual_seed(T)
@@ -106,10 +169,13 @@ def test_k3_kernel_matches_plain(dev, T):
     tv = torch.rand((W, T), generator=g, device=dev) < 0.75
     tv[3] = False
     for args in ((q, qv, t[0], tv[0]), (q, qv, t, tv), (t, tv, q, qv)):
-        ker = cuda_hamming.hamming_nn(*args)
         ref = cuda_hamming.hamming_nn_plain(*args)
-        for a, b in zip(ker, ref):
-            assert torch.equal(a, b)
+        words = (cuda_matching.pack_desc(args[0]), args[1],
+                 cuda_matching.pack_desc(args[2]), args[3])
+        for ker in (cuda_hamming.hamming_nn(*args),
+                    cuda_hamming.hamming_nn(*words)):
+            for a, b in zip(ker, ref):
+                assert torch.equal(a, b)
     n0 = cuda_hamming.hamming_nn.launches
     for args in ((q, qv, t[0], tv[0]), (q, qv, t, tv)):
         a = track_match.match_by_descriptor(*args)

@@ -132,7 +132,7 @@ def rings():
     descs = jm.kf_desc[valid][jm.kf_kp_valid[valid]][:4000]
     return dict(drift=drift, jm=jm, tm=tm, dup_of=dup_of, gt=gt,
                 jvoc=j_train(jnp.asarray(descs), k=8, L=3, seed=0),
-                tvoc=t_train(descs, k=8, L=3, seed=0))
+                tvoc=t_train(descs, k=8, L=3, seed=0, device="cpu"))
 
 
 def _closers(r, jm=None, tm=None, n_db=N_FIRST, **kw):

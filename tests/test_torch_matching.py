@@ -12,11 +12,12 @@ import torch
 from orb_slam3_study_kr_tpu.cameras import pinhole as jpinhole
 from orb_slam3_study_kr_tpu.ops import matching as jmatching
 from orb_slam3_study_kr_tpu.ops import track_match as jtm
+from orb_slam3_study_kr_tpu.ops.pallas_matching import gated_nn_pallas
 from orb_slam3_study_kr_tpu_torch.cameras import pinhole as tpinhole
 from orb_slam3_study_kr_tpu_torch.ops import matching as tmatching
 from orb_slam3_study_kr_tpu_torch.ops import track_match as ttm
 from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import (
-    BIG, gated_nn, gated_nn_plain, pack_desc)
+    BIG, gated_nn, gated_nn_plain, pack_desc, pack_desc_np, unpack_desc)
 
 torch.set_num_threads(2)
 
@@ -45,6 +46,21 @@ def test_pack_desc_popcount_roundtrip():
     w = pack_desc(torch.as_tensor(a)).numpy().view(np.uint32)
     bits = np.unpackbits(w.view(np.uint8), bitorder="little").reshape(5, 256)
     np.testing.assert_array_equal(bits, a)
+
+
+def test_pack_desc_host_form_and_unpack():
+    """The host packing (numpy) gives the same words as pack_desc, and
+    unpack_desc inverts both; bit 31 lands in the sign bit."""
+    rng = np.random.default_rng(2)
+    a = _bits(rng, (3, 7, 256))
+    a[0, 0, 31::32] = 1
+    w = pack_desc(torch.as_tensor(a))
+    assert w.dtype == torch.int32 and tuple(w.shape) == (3, 7, 8)
+    assert (w[0, 0] < 0).all()
+    np.testing.assert_array_equal(pack_desc_np(a), w.numpy())
+    np.testing.assert_array_equal(unpack_desc(w).numpy(), a)
+    np.testing.assert_array_equal(
+        unpack_desc(torch.as_tensor(pack_desc_np(a))).numpy(), a)
 
 
 def _frames(seed, n1=200, n2=220):
@@ -133,6 +149,22 @@ def test_match_local_map_plain_matches_jax_and_pallas(seed, th, slack):
     np.testing.assert_array_equal(ts[to], ps[po])
 
 
+@pytest.mark.parametrize("seed,th,slack", [(5, 3.0, 7), (6, 1.0, 1)])
+def test_match_local_map_words_equal_bits(seed, th, slack):
+    """match_local_map with the descriptors packed into K2's words (one
+    side, then both) gives the same (slot, ok, visible) as with bits."""
+    arrs = [torch.as_tensor(a) for a in _local_map_problem(seed)]
+    kw = dict(th=th, level_slack=slack)
+    ref = ttm.match_local_map(t_project, *arrs, 752, 480, **kw)
+    for sides in ((6,), (10,), (6, 10)):
+        a = list(arrs)
+        for i in sides:
+            a[i] = pack_desc(a[i])
+        out = ttm.match_local_map(t_project, *a, 752, 480, **kw)
+        for x, y in zip(out, ref):
+            assert torch.equal(x, y), sides
+
+
 def test_match_local_map_batch_exact():
     """Fuse-style batched matching (vmap in the reference, one batched K2
     call here) against the reference, neighbour by neighbour."""
@@ -200,6 +232,62 @@ def test_gated_nn_all_gated():
     assert (idx.numpy()[q_valid] == 9).all()
     assert (second.numpy() == BIG).all()
     assert best.numpy()[1] == BIG
+
+
+def _gated_reference(q, qv, t, tv, q_uv, t_uv, rad, q_lvl, t_lvl, slack):
+    """The reference's dense gated NN (the jnp block inside
+    jtm.match_local_map): argmin, min and the one-hot-excluded second."""
+    d_uv = jnp.abs(t_uv[:, None, :] - q_uv[None, :, :])
+    lvl = q_lvl[None, :] - t_lvl[:, None]
+    mask = ((d_uv[..., 0] <= rad[:, None]) & (d_uv[..., 1] <= rad[:, None])
+            & (lvl >= -slack) & (lvl <= slack) & tv[:, None] & qv[None, :])
+    d = jnp.where(mask, jmatching.hamming_matrix(t, q), BIG)
+    idx = jnp.argmin(d, axis=0)
+    second = jnp.min(jnp.where(jnp.arange(d.shape[0])[:, None] == idx[None, :],
+                               BIG, d), axis=0)
+    return jnp.min(d, axis=0), second, idx
+
+
+@pytest.mark.parametrize("seed,L", [(12, 256), (13, 512)])
+def test_gated_nn_plain_words_match_bits_and_reference(seed, L):
+    """gated_nn_plain on packed words equals the bits form and the JAX
+    reference's dense expression exactly (best, second, idx), and the
+    Pallas kernel in interpret mode on best and second, and on idx where
+    the argmin is unique (its tie order is the TPU key packing's)."""
+    rng = np.random.default_rng(seed)
+    N = 200
+    proto = _bits(rng, (12, 256))
+    q = proto[rng.integers(0, 12, N)]
+    t = np.where(rng.random((L, 256)) < 0.03, 1 - proto[rng.integers(0, 12, L)],
+                 proto[rng.integers(0, 12, L)]).astype(np.uint8)
+    q_uv = rng.uniform(0, 60, (N, 2)).astype(np.float32)
+    t_uv = rng.uniform(0, 60, (L, 2)).astype(np.float32)
+    rad = rng.uniform(2, 15, L).astype(np.float32)
+    q_lvl = rng.integers(0, 4, N).astype(np.int32)
+    t_lvl = rng.integers(0, 4, L).astype(np.int32)
+    qv = rng.random(N) < 0.9
+    tv = rng.random(L) < 0.8
+    bits = [torch.as_tensor(a) for a in (q, q_uv, q_lvl, qv, t, t_uv, rad,
+                                          t_lvl, tv)]
+    words = list(bits)
+    words[0], words[4] = pack_desc(bits[0]), pack_desc(bits[4])
+    b = gated_nn_plain(*bits, level_slack=1)
+    w = gated_nn_plain(*words, level_slack=1)
+    c = gated_nn(*words, level_slack=1)
+    for x, y, z in zip(b, w, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    ref = _gated_reference(*[jnp.asarray(a) for a in (q, qv, t, tv, q_uv, t_uv,
+                                                       rad, q_lvl, t_lvl)], 1)
+    for x, y in zip(b, ref):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert (b[0].numpy() < BIG).sum() > 50
+    pb, ps, pi = [np.asarray(x) for x in gated_nn_pallas(
+        *[jnp.asarray(a) for a in (q, q_uv, q_lvl, qv, t, t_uv, rad, t_lvl, tv)],
+        level_slack=1, interpret=True)]
+    np.testing.assert_array_equal(b[0].numpy(), pb)
+    np.testing.assert_array_equal(b[1].numpy(), ps)
+    unique = (b[0].numpy() < b[1].numpy())
+    np.testing.assert_array_equal(b[2].numpy()[unique], pi[unique])
 
 
 def test_gated_nn_plain_batched_equals_unbatched():

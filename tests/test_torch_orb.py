@@ -78,6 +78,34 @@ def test_k1_plain_matches_jnp_stage_and_pallas(kind):
     assert np.abs(blur - pblur).max() < 1e-4
 
 
+def test_k1_pyramid_plain_matches_per_level_and_pallas():
+    """fast_nms_blur_pyramid's plain route (the CPU) over the 8 level sizes
+    of a 752x480 pyramid: identical to fast_nms_blur_plain level by level;
+    against the Pallas kernel in interpret mode, each level lane-padded to
+    a multiple of 128 as the reference's extract_level pads it, the score
+    and NMS maps are bit-exact and the blur within 1e-4 on the interior
+    [8:-8] (the padding and the kernel's row clamp reach 4 px in)."""
+    cfg = torb.OrbConfig()
+    rng = np.random.default_rng(6)
+    img = rng.integers(0, 255, (cfg.height, cfg.width)).astype(np.float32)
+    levels = torb.build_pyramid(torch.as_tensor(img), cfg)
+    assert [tuple(x.shape) for x in levels] == list(cfg.level_sizes)
+    maps = cuda_fast.fast_nms_blur_pyramid(levels, 7.0, 20.0)
+    assert len(maps) == cfg.n_levels
+    for lvl, (img_l, m) in enumerate(zip(levels, maps)):
+        for a, b in zip(m, cuda_fast.fast_nms_blur_plain(img_l, 7.0, 20.0)):
+            assert torch.equal(a, b), lvl
+        H, W = img_l.shape
+        padded = jnp.pad(jnp.asarray(img_l.numpy()), ((0, 0), (0, -(-W // 128) * 128 - W)))
+        p = [np.asarray(x)[:, :W] for x in fast_nms_blur_pallas(
+            padded, 7.0, 20.0, interpret=True)]
+        c = np.s_[8:-8, 8:-8]
+        for name, a, b in zip(("s_raw", "s20", "s7"), m[:3], p[:3]):
+            np.testing.assert_array_equal(a.numpy()[c], b[c],
+                                          err_msg=f"level {lvl} {name}")
+        assert np.abs(m[3].numpy()[c] - p[3][c]).max() < 1e-4, lvl
+
+
 def test_build_pyramid_matches_jax_resize():
     """Antialiased linear resize with the reference's weight matrices.
     Tolerance 2e-4 gray levels (of 0..255): weights agree to 2 ulp; the

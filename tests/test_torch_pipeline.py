@@ -137,6 +137,57 @@ def test_fused_track_frame_from_carried_state(reference):
     assert (frame.kp_lm[both] == jf["kp_lm"][both]).mean() >= 0.99
 
 
+def _flat(x):
+    if isinstance(x, (tuple, list)):
+        return [y for v in x for y in _flat(v)]
+    return [x]
+
+
+def test_fused_frame_packs_descriptors_once(reference, monkeypatch):
+    """Within one fused frame the frame's descriptors are packed once and
+    the landmark block arrives packed (cached with the block), so every K2
+    call gets int32 words on both sides and the CUDA wrapper packs nothing.
+    The same fused_track_frame call with the block's descriptors as bits
+    gives identical outputs."""
+    from orb_slam3_study_kr_tpu_torch.ops import cuda_matching, track_match
+    from orb_slam3_study_kr_tpu_torch.pipeline import tracking
+
+    slam = _port_system()
+    tr = slam.tracker
+    convert.tracker_state_from_numpy(tr, **reference["state"])
+    frame = tr._extract_frame(reference["imgs"][K_FRAME], K_FRAME * 0.1)
+    tr._update_last_frame()
+    packs, k2, calls = [], [], []
+    pack, gnn, ftf = (cuda_matching.pack_desc, track_match.gated_nn,
+                      tracking.fused_track_frame)
+
+    def counting_pack(d):
+        packs.append(tuple(d.shape))
+        return pack(d)
+
+    def recording_gnn(q_desc, *a, **kw):
+        k2.append((q_desc.dtype, q_desc.shape[-1], a[3].dtype, a[3].shape[-1]))
+        return gnn(q_desc, *a, **kw)
+
+    def recording_ftf(*a, **kw):
+        calls.append((a, kw))
+        return ftf(*a, **kw)
+
+    monkeypatch.setattr(cuda_matching, "pack_desc", counting_pack)
+    monkeypatch.setattr(track_match, "gated_nn", recording_gnn)
+    monkeypatch.setattr(tracking, "fused_track_frame", recording_ftf)
+    assert tr._track_fused_frame(frame) is not None and len(calls) == 1
+    assert packs == [(tr.cfg.orb_config.total_slots, 256)], packs
+    assert len(k2) >= 4
+    assert set(k2) == {(torch.int32, 8, torch.int32, 8)}, k2
+    args, kw = calls[0]
+    assert args[6].dtype == torch.int32 and args[6].shape[-1] == 8
+    bits = list(args)
+    bits[6] = cuda_matching.unpack_desc(args[6])
+    for x, y in zip(_flat(ftf(*args, **kw)), _flat(ftf(*bits, **kw))):
+        assert torch.equal(x, y)
+
+
 class _JaxKeyChain:
     """The reference tracker's RANSAC draws: PRNGKey(seed), one split per
     reconstruction attempt, then one split into (homography, fundamental)
@@ -305,7 +356,7 @@ def test_default_config_runs_and_merge_raises():
                          np.zeros(n, np.int32), np.zeros(n, np.float32),
                          np.ones(n, bool),
                          rng.integers(0, 2, (n, 256)).astype(np.uint8), 0, 0.0)
-    slam.voc = train_vocabulary(m0.kf_desc[kf], k=4, L=2)
+    slam.voc = train_vocabulary(m0.kf_desc[kf], k=4, L=2, device="cpu")
     slam.db = KeyframeDatabase(slam.voc)
     slam.map_dbs[m0.map_id] = slam.db
     slam.db.add(kf, m0.kf_desc[kf], m0.kf_kp_valid[kf])

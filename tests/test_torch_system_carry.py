@@ -105,7 +105,7 @@ def test_carried_map_and_vocabulary(reference):
         np.testing.assert_array_equal(slam.db.vectors[k][0], w)
         np.testing.assert_allclose(slam.db.vectors[k][1], v, atol=1e-6)
     assert vocabulary_checksum(slam.voc) == vocabulary_checksum(
-        convert.vocabulary_from_numpy(ref["voc"]))
+        convert.vocabulary_from_numpy(ref["voc"], device="cpu"))
 
 
 def test_relocalization_on_carried_map_matches_reference(reference):

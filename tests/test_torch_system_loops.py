@@ -117,7 +117,8 @@ def test_prebuilt_vocabulary_path(tmp_path, fmt):
     desc = rng.integers(0, 2, (400, 256)).astype(np.uint8)
     path = tmp_path / f"voc.{fmt}"
     if fmt == "npz":
-        voc_mod.save_vocabulary(voc_mod.train_vocabulary(desc, k=4, L=2), path)
+        voc_mod.save_vocabulary(
+            voc_mod.train_vocabulary(desc, k=4, L=2, device="cpu"), path)
     else:
         with open(path, "w") as f:
             f.write("2 1 0 0\n")
