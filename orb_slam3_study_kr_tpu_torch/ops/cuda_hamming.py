@@ -1,37 +1,46 @@
-"""K3: masked Hamming nearest neighbour.
+"""K3: masked Hamming nearest neighbour, by rows and by columns.
 
 Counterpart of ``orb_slam3_study_kr_tpu/ops/pallas_matching.py``
 (``hamming_nn_pallas``), generalised to what ``match_by_descriptor``
-needs: a validity mask on both sides and an optional leading batch axis on
-either side.  On CUDA tensors ``hamming_nn`` launches the hand-written
-kernel in ``csrc/hamming_nn.cu``; on CPU tensors it runs
-``hamming_nn_plain``, the dense masked Hamming matrix.  Semantics: a pair
-(i, j) counts only when ``q_valid[i] & t_valid[j]`` and scores BIG
-otherwise; first-index argmin; a second-best that leaves out only the
-argmin index; idx 0 and best = second = BIG for a row with no valid pair.
-Any target count T >= 1.  Descriptors are (..., 256) uint8 bits or
-(..., 8) int32 words from ``cuda_matching.pack_desc``; the kernel reads
-words, so a caller that matches a set more than once packs it once.
+needs: a validity mask on both sides, an optional leading batch axis on
+either side, and the column argmin of the same masked matrix.  On CUDA
+tensors the wrappers launch the hand-written kernel in
+``csrc/hamming_nn.cu`` (one launch gives rows and columns); on CPU tensors
+they run the plain version, one dense masked Hamming matrix reduced both
+ways.  Semantics: a pair (i, j) counts only when ``q_valid[i] &
+t_valid[j]`` and scores BIG otherwise; first-index argmin in rows and in
+columns; a second-best that leaves out only the argmin index; idx 0 and
+best = second = BIG for a row with no valid pair, back 0 for a column with
+none.  Any Q, T >= 1.  Descriptors are (..., 256) uint8 {0,1} bits, which
+the kernel reads as they are, or (..., 8) int32 words from
+``cuda_matching.pack_desc``, which the wrapper unpacks first.
 """
 
 import torch
 
-from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import as_bits, as_words
+from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import as_bits
 from orb_slam3_study_kr_tpu_torch.ops.matching import BIG, _excl_min, hamming_matrix
 
 
-def hamming_nn_plain(q_desc, q_valid, t_desc, t_valid):
+def hamming_nn_match_plain(q_desc, q_valid, t_desc, t_valid):
     """Dense reference: q_desc (..., Q, 256) bits or (..., Q, 8) words,
     q_valid (..., Q), t_desc (..., T, 256) or (..., T, 8), t_valid (..., T);
-    leading axes broadcast.  Returns (best (..., Q) f32, second (..., Q)
-    f32, idx (..., Q) int32)."""
+    leading axes broadcast.  One masked matrix, reduced by rows and by
+    columns.  Returns (best (..., Q) f32, second (..., Q) f32, idx (..., Q)
+    int32, back (..., T) int32)."""
     dist = hamming_matrix(as_bits(q_desc), as_bits(t_desc))
     mask = q_valid[..., :, None] & t_valid[..., None, :]
     d = torch.where(mask, dist, torch.full_like(dist, BIG))
     idx = torch.argmin(d, dim=-1)                             # first index
     best = torch.gather(d, -1, idx[..., None])[..., 0]
     second = _excl_min(d, idx, -1)
-    return best, second, idx.to(torch.int32)
+    back = torch.argmin(d, dim=-2)
+    return best, second, idx.to(torch.int32), back.to(torch.int32)
+
+
+def hamming_nn_plain(q_desc, q_valid, t_desc, t_valid):
+    """The rows of ``hamming_nn_match_plain``: (best, second, idx)."""
+    return hamming_nn_match_plain(q_desc, q_valid, t_desc, t_valid)[:3]
 
 
 def _check(name, a, dev, shape, dtype):
@@ -47,13 +56,13 @@ def _check(name, a, dev, shape, dtype):
 
 
 def hamming_nn(q_desc, q_valid, t_desc, t_valid):
-    """K3 wrapper.  q_desc (Q, 256) or (B, Q, 256) uint8 {0,1}, or the same
-    with (..., 8) int32 words; q_valid (Q,) or (B, Q) bool; t_desc (T, 256)
-    or (B, T, 256) uint8, or words; t_valid (T,) or (B, T) bool.  A side
-    without the batch axis is shared by every batch row.  Returns (best,
-    second, idx) of shape (Q,) when neither side is batched, else (B, Q).
-    The CUDA kernel for CUDA tensors, the plain version for CPU tensors;
-    counts launches in ``hamming_nn.launches``."""
+    """K3 wrapper, rows only.  q_desc (Q, 256) or (B, Q, 256) uint8 {0,1},
+    or the same with (..., 8) int32 words; q_valid (Q,) or (B, Q) bool;
+    t_desc (T, 256) or (B, T, 256) uint8, or words; t_valid (T,) or (B, T)
+    bool.  A side without the batch axis is shared by every batch row.
+    Returns (best, second, idx) of shape (Q,) when neither side is batched,
+    else (B, Q).  The CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors; counts launches in ``hamming_nn.launches``."""
     if q_desc.device.type == "cpu":
         return hamming_nn_plain(q_desc, q_valid, t_desc, t_valid)
     launch, out = hamming_nn_call(q_desc, q_valid, t_desc, t_valid)
@@ -61,10 +70,24 @@ def hamming_nn(q_desc, q_valid, t_desc, t_valid):
     return out
 
 
-def hamming_nn_call(q_desc, q_valid, t_desc, t_valid):
-    """The CUDA half of ``hamming_nn``: checks, packs and allocates, and
-    returns (launch, (best, second, idx)); each ``launch()`` runs the
-    kernel once into those outputs on the current stream and counts it.
+def hamming_nn_match(q_desc, q_valid, t_desc, t_valid):
+    """``hamming_nn`` plus the column output of the same launch: returns
+    (best, second, idx, back), back (T,) or (B, T) int32, each target's
+    first-index argmin over the queries of the masked matrix.  One K3
+    launch (counted in ``hamming_nn.launches``) on CUDA tensors."""
+    if q_desc.device.type == "cpu":
+        return hamming_nn_match_plain(q_desc, q_valid, t_desc, t_valid)
+    launch, out = hamming_nn_call(q_desc, q_valid, t_desc, t_valid,
+                                  columns=True)
+    launch()
+    return out
+
+
+def hamming_nn_call(q_desc, q_valid, t_desc, t_valid, columns=False):
+    """The CUDA half of ``hamming_nn`` (``columns=True``:
+    ``hamming_nn_match``): checks and allocates, and returns (launch,
+    outputs); each ``launch()`` runs the kernel once into those outputs on
+    the current stream (with the memset of the column keys) and counts it.
     Timing ``launch`` alone gives the kernel's own time."""
     dev = q_desc.device
     if dev.type != "cuda":
@@ -80,25 +103,29 @@ def hamming_nn_call(q_desc, q_valid, t_desc, t_valid):
         raise ValueError(f"hamming_nn: empty problem B={B} Q={Q} T={T}")
     qb = (Bq,) if q_batched else ()
     tb = (Bt,) if t_batched else ()
-    for name, a in (("q_desc", q_desc), ("t_desc", t_desc)):
-        if not a.is_contiguous():
-            raise ValueError(f"hamming_nn: {name} is not contiguous")
-    q_words = as_words(q_desc)
-    t_words = as_words(t_desc)
-    _check("q_desc", q_words, dev, (*qb, Q, 8), torch.int32)
+    q_bits = as_bits(q_desc)
+    t_bits = as_bits(t_desc)
+    _check("q_desc", q_bits, dev, (*qb, Q, 256), torch.uint8)
     _check("q_valid", q_valid, dev, (*qb, Q), torch.bool)
-    _check("t_desc", t_words, dev, (*tb, T, 8), torch.int32)
+    _check("t_desc", t_bits, dev, (*tb, T, 256), torch.uint8)
     _check("t_valid", t_valid, dev, (*tb, T), torch.bool)
+    for name, a in (("q_desc", q_bits), ("t_desc", t_bits)):
+        if a.data_ptr() % 16:
+            raise ValueError(f"hamming_nn: {name} must start 16-byte aligned "
+                             "(the kernel copies rows 16 bytes at a time)")
     best = torch.empty((B, Q), dtype=torch.float32, device=dev)
     second = torch.empty((B, Q), dtype=torch.float32, device=dev)
     idx = torch.empty((B, Q), dtype=torch.int32, device=dev)
+    keys = (torch.empty((B, T), dtype=torch.int64, device=dev) if columns
+            else None)
     from orb_slam3_study_kr_tpu_torch.ops import cuda_lib
 
     lib = cuda_lib.load()
-    argv = (q_words.data_ptr(), q_valid.data_ptr(), t_words.data_ptr(),
+    argv = (q_bits.data_ptr(), q_valid.data_ptr(), t_bits.data_ptr(),
             t_valid.data_ptr(), best.data_ptr(), second.data_ptr(),
-            idx.data_ptr(), B, Q, T, int(not q_batched), int(not t_batched))
-    keep = (q_words, q_valid, t_words, t_valid, best, second, idx)
+            idx.data_ptr(), None if keys is None else keys.data_ptr(),
+            B, Q, T, int(not q_batched), int(not t_batched))
+    keep = (q_bits, q_valid, t_bits, t_valid, best, second, idx, keys)
 
     # `keep` holds the tensors whose pointers argv carries.
     def launch(keep=keep):
@@ -106,9 +133,13 @@ def hamming_nn_call(q_desc, q_valid, t_desc, t_valid):
         cuda_lib.check(err, "hamming_nn")
         hamming_nn.launches += 1
 
+    out = (best, second, idx)
+    if columns:
+        # Each key is (d << 32 | q); its low word, first in memory, is q.
+        out += (keys.view(torch.int32)[..., 0::2],)
     if not (q_batched or t_batched):
-        return launch, (best[0], second[0], idx[0])
-    return launch, (best, second, idx)
+        out = tuple(x[0] for x in out)
+    return launch, out
 
 
 hamming_nn.launches = 0

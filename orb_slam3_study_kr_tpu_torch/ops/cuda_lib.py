@@ -84,7 +84,7 @@ def load():
     lib.gated_nn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
                              i, i, i, i, p]
     lib.gated_nn.restype = i
-    lib.hamming_nn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.hamming_nn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.hamming_nn.restype = i
     _lib = lib
     return lib

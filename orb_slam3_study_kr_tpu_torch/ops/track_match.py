@@ -3,16 +3,16 @@
 Counterpart of ``orb_slam3_study_kr_tpu/ops/track_match.py``.  One path per
 op: the gated nearest-neighbour search goes through K2
 (``ops/cuda_matching.gated_nn``) and descriptor-only matching through K3
-(``ops/cuda_hamming.hamming_nn``); each is the CUDA kernel on the card and
-the dense masked Hamming matrix on the CPU.  Gate constants: distance band
+(``ops/cuda_hamming.hamming_nn_match``); each is the CUDA kernel on the card
+and the dense masked Hamming matrix on the CPU.  Gate constants: distance band
 [0.8 min, 1.2 max], viewing-angle cos > 0.5, radius 2.5 / 4.0 by view angle
 (x th), per-level radius scaling, TH_HIGH acceptance.
 """
 
 import torch
 
-from orb_slam3_study_kr_tpu_torch.ops.cuda_hamming import hamming_nn
-from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import as_words, gated_nn
+from orb_slam3_study_kr_tpu_torch.ops.cuda_hamming import hamming_nn_match
+from orb_slam3_study_kr_tpu_torch.ops.cuda_matching import gated_nn
 from orb_slam3_study_kr_tpu_torch.ops.matching import (BIG, TH_HIGH, _excl_min,
                                                        hamming_matrix)
 
@@ -116,22 +116,19 @@ def match_local_map_batch(
 def match_by_descriptor(q_desc, q_valid, t_desc, t_valid, max_dist=50.0,
                         nn_ratio=0.75):
     """Unconstrained descriptor matching with ratio + mutual check (the
-    dense stand-in for SearchByBoW), as two K3 passes: the row pass gives
-    (idx, best, second) for the ratio test, the column pass (targets as
-    queries) gives each target's best query for the mutual check.  Both
-    passes mask with both validity vectors, so idx is 0 on invalid rows.
-    Each side is packed once and its words serve both passes.
+    dense stand-in for SearchByBoW), as one K3 launch: its rows give
+    (idx, best, second) for the ratio test, its columns each target's best
+    query for the mutual check, both from the same masked matrix, so idx
+    is 0 on invalid rows.
 
-    q_desc (Q, 256) uint8 or (Q, 8) int32 words / q_valid (Q,), t_desc
-    (T, 256) or (T, 8) / t_valid (T,); either side may carry a leading
-    batch axis (the loop window: one query set against (W, T) targets, one
-    launch per pass).  Returns (idx (..., Q) int64, ok (..., Q) bool, best
-    (..., Q) f32)."""
-    q_words = as_words(q_desc).contiguous()
-    t_words = as_words(t_desc).contiguous()
-    q_valid, t_valid = q_valid.contiguous(), t_valid.contiguous()
-    best, second, idx = hamming_nn(q_words, q_valid, t_words, t_valid)
-    _, _, back = hamming_nn(t_words, t_valid, q_words, q_valid)
+    q_desc (Q, 256) uint8 bits (or (Q, 8) int32 words) / q_valid (Q,),
+    t_desc (T, 256) or (T, 8) / t_valid (T,); either side may carry a
+    leading batch axis (the loop window: one query set against (W, T)
+    targets in the same launch).  Returns (idx (..., Q) int64, ok (..., Q)
+    bool, best (..., Q) f32)."""
+    best, second, idx, back = hamming_nn_match(
+        q_desc.contiguous(), q_valid.contiguous(), t_desc.contiguous(),
+        t_valid.contiguous())
     idx = idx.long()
     ok = (best <= max_dist) & (best < nn_ratio * second)
     ar = torch.arange(idx.shape[-1], device=idx.device)

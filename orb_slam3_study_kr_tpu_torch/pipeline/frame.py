@@ -15,6 +15,7 @@ removes it from the steady-state frame path entirely.
 import numpy as np
 
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM
+from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
 # Host arrays that can be materialized lazily from a deferred fetch.
 _LAZY = ("uv", "level", "angle", "response", "desc", "valid", "patch",
@@ -26,9 +27,10 @@ class Frame:
                  response=None, desc=None, valid=None, patch=None,
                  uv_raw=None, pyr=None, depth=None, u_r=None, stereo_pc=None,
                  v_w=None, R_cw=None, t_cw=None, kp_lm=None, ref_kf=-1,
-                 pose_ok=False, n_kp=None, fetch=None, device="cpu"):
+                 pose_ok=False, n_kp=None, fetch=None, device="cuda"):
         self.frame_id = frame_id
-        self.device = device         # torch device of the _dev mirrors
+        # torch device of the _dev mirrors; "cuda" raises without a card
+        self.device = resolve_device(device, "Frame(device)")
         self.timestamp = timestamp
         self._host = {}
         for name, val in (("uv", uv), ("level", level), ("angle", angle),

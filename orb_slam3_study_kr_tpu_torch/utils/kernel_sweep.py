@@ -8,8 +8,11 @@ cost of a launch that does not scale with the work; the slope is the cost
 per unit of work.  Inputs are random, made on the card from fixed seeds:
 K1 takes uniform gray levels, K2 uniform projections over a 752x480 frame
 with radii 4 * 1.2^level (the count of pairs that pass its gates is
-printed), K3 all-valid descriptors.  Prints the card's nvidia-smi name and
-power limit, one line per kernel, then the whole result as JSON.
+printed), K3 all-valid descriptors as bits, timed as the fused launch
+(rows and columns) that ``match_by_descriptor`` makes and as the rows
+alone (``hamming_nn``: no column keys, no memset).  Prints the card's
+nvidia-smi name and power limit, one line per kernel, then the whole
+result as JSON.
 """
 
 import argparse
@@ -24,18 +27,26 @@ from orb_slam3_study_kr_tpu_torch.utils.profiling import device_ms_per_launch
 
 K2_SIZES = ((1000, 1), (1000, 512), (1000, 4096), (1000, 16384), (1000, 65536),
             (32, 4096), (256, 4096), (4000, 4096))
-K3_SIZES = ((1000, 1), (1000, 256), (1000, 1000), (1000, 4000), (4000, 1000))
+# K3: (W, Q, T), one shared query set against W target sets: the main
+# path's Q = T = 1000 (relocalization, reference-keyframe tracking), the
+# loop window's 11 x 1000 targets, and the ring world's 512 keypoints a
+# keyframe, alone and in an 11-keyframe window.
+K3_SIZES = ((1, 1000, 1), (1, 1000, 256), (1, 512, 512), (11, 512, 512),
+            (1, 1000, 1000), (11, 1000, 1000), (1, 1000, 4000), (1, 4000, 1000))
 
 
 def _bits(g, dev, *shape):
-    return cuda_matching.pack_desc(
-        (torch.rand((*shape, 256), generator=g, device=dev) < 0.5).to(torch.uint8))
+    return (torch.rand((*shape, 256), generator=g, device=dev) < 0.5).to(torch.uint8)
+
+
+def _words(g, dev, *shape):
+    return cuda_matching.pack_desc(_bits(g, dev, *shape))
 
 
 def k2_inputs(dev, N, L, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     frame = torch.tensor([752.0, 480.0], device=dev)
-    q, t = _bits(g, dev, N), _bits(g, dev, L)
+    q, t = _words(g, dev, N), _words(g, dev, L)
     t_uv = torch.rand((L, 2), generator=g, device=dev) * frame
     q_uv = torch.rand((N, 2), generator=g, device=dev) * frame
     t_level = torch.randint(0, 8, (L,), generator=g, device=dev, dtype=torch.int32)
@@ -80,12 +91,16 @@ def sweep_k2(dev):
 
 def sweep_k3(dev):
     rows = []
-    for Q, T in K3_SIZES:
-        g = torch.Generator(device=dev).manual_seed(Q + T)
-        launch, _ = cuda_hamming.hamming_nn_call(
-            _bits(g, dev, Q), torch.ones(Q, dtype=torch.bool, device=dev),
-            _bits(g, dev, T), torch.ones(T, dtype=torch.bool, device=dev))
-        rows.append(dict(Q=Q, T=T, device_ms=device_ms_per_launch(launch)))
+    for W, Q, T in K3_SIZES:
+        g = torch.Generator(device=dev).manual_seed(W + Q + T)
+        tb = (W,) if W > 1 else ()
+        args = (_bits(g, dev, Q), torch.ones(Q, dtype=torch.bool, device=dev),
+                _bits(g, dev, *tb, T),
+                torch.ones((*tb, T), dtype=torch.bool, device=dev))
+        fused, _ = cuda_hamming.hamming_nn_call(*args, columns=True)
+        rows_only, _ = cuda_hamming.hamming_nn_call(*args)
+        rows.append(dict(W=W, Q=Q, T=T, device_ms=device_ms_per_launch(fused),
+                         rows_only_ms=device_ms_per_launch(rows_only)))
     return rows
 
 
@@ -106,7 +121,8 @@ def main(argv=None):
         f"N={r['N']} L={r['L']} ({r['passing']} passing) {r['device_ms']:.5f}"
         for r in out["k2"]))
     print("K3 (ms): " + ", ".join(
-        f"Q={r['Q']} T={r['T']} {r['device_ms']:.5f}" for r in out["k3"]))
+        f"W={r['W']} Q={r['Q']} T={r['T']} {r['device_ms']:.5f} (rows only "
+        f"{r['rows_only_ms']:.5f})" for r in out["k3"]))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

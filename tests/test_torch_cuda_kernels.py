@@ -151,15 +151,34 @@ def test_wrappers_count_launches(dev):
     assert cuda_matching.gated_nn.launches == n0 + 2
 
 
-@pytest.mark.parametrize("T", [1, 255, 1000, 1001])
-def test_k3_kernel_matches_plain(dev, T):
-    """(best, second, idx) identical for any T, on bits and on packed
-    words, with invalid queries and targets, an all-invalid batch row, ties
-    among 6 prototypes, and the loop window layout (shared queries, batched targets, and the column
-    pass with the sides swapped); match_by_descriptor equal to its dense
-    form."""
-    g = torch.Generator(device=dev).manual_seed(T)
-    Q, W = 1000, 11
+def _k3_equal(args):
+    """Both K3 entry points, on bits and on packed words, against the plain
+    versions: (best, second, idx) and back identical."""
+    ref = cuda_hamming.hamming_nn_match_plain(*args)
+    words = (cuda_matching.pack_desc(args[0]), args[1],
+             cuda_matching.pack_desc(args[2]), args[3])
+    for x in (args, words):
+        rows = cuda_hamming.hamming_nn(*x)
+        both = cuda_hamming.hamming_nn_match(*x)
+        assert len(rows) == 3 and len(both) == 4
+        for a, b in zip((*rows, *both), (*ref[:3], *ref)):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, b)
+    return ref
+
+
+@pytest.mark.parametrize("Q,T", [(Q, T) for Q in (1, 1000)
+                                 for T in (1, 255, 1000, 1001, 4000)]
+                         + [(4000, 1000)])
+def test_k3_kernel_matches_plain(dev, Q, T):
+    """Rows and columns identical for any Q and T (below, at and above the
+    cluster's 1024 targets), on bits and on packed words, with invalid
+    queries and targets, an all-invalid batch row, ties among 6
+    prototypes, and the loop window layout (shared queries against W = 11
+    target sets) and the sides swapped (batched queries, shared targets);
+    match_by_descriptor equal to its dense form, one launch per call."""
+    g = torch.Generator(device=dev).manual_seed(Q + T)
+    W = 11
     proto = (torch.rand((6, 256), generator=g, device=dev) < 0.5).to(torch.uint8)
     q = proto[torch.randint(0, 6, (Q,), generator=g, device=dev)]
     t = proto[torch.randint(0, 6, (W, T), generator=g, device=dev)]
@@ -169,29 +188,44 @@ def test_k3_kernel_matches_plain(dev, T):
     tv = torch.rand((W, T), generator=g, device=dev) < 0.75
     tv[3] = False
     for args in ((q, qv, t[0], tv[0]), (q, qv, t, tv), (t, tv, q, qv)):
-        ref = cuda_hamming.hamming_nn_plain(*args)
-        words = (cuda_matching.pack_desc(args[0]), args[1],
-                 cuda_matching.pack_desc(args[2]), args[3])
-        for ker in (cuda_hamming.hamming_nn(*args),
-                    cuda_hamming.hamming_nn(*words)):
-            for a, b in zip(ker, ref):
-                assert torch.equal(a, b)
+        _k3_equal(args)
     n0 = cuda_hamming.hamming_nn.launches
     for args in ((q, qv, t[0], tv[0]), (q, qv, t, tv)):
         a = track_match.match_by_descriptor(*args)
         b = track_match.match_by_descriptor_plain(*args)
         for x, y in zip(a, b):
             assert torch.equal(x, y)
-    assert cuda_hamming.hamming_nn.launches == n0 + 4
+    assert cuda_hamming.hamming_nn.launches == n0 + 2
+
+
+def test_k3_columns_all_gated_and_ties(dev):
+    """An all-invalid query set: every column's back is 0 and every row
+    BIG; with 2 prototypes nearly every column ties, and back keeps the
+    lowest query index."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    proto = (torch.rand((2, 256), generator=g, device=dev) < 0.5).to(torch.uint8)
+    q = proto[torch.randint(0, 2, (1000,), generator=g, device=dev)]
+    t = proto[torch.randint(0, 2, (1000,), generator=g, device=dev)]
+    qv = torch.rand(1000, generator=g, device=dev) < 0.8
+    tv = torch.ones(1000, dtype=torch.bool, device=dev)
+    best, second, idx, back = _k3_equal((q, qv, t, tv))
+    first = [int(torch.nonzero(qv & (q == p).all(-1))[0]) for p in proto]
+    assert set(back.tolist()) <= set(first)
+    best, second, idx, back = _k3_equal((q, torch.zeros_like(qv), t, tv))
+    assert not bool(back.any()) and not bool(idx.any())
+    assert bool((best == cuda_matching.BIG).all())
 
 
 def test_k3_wrapper_checks(dev):
     q = torch.zeros((4, 256), dtype=torch.uint8, device=dev)
     v = torch.ones(4, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError, match="dtype|is torch"):
-        cuda_hamming.hamming_nn(q.float(), v, q, v)
-    with pytest.raises(ValueError, match="contiguous"):
-        cuda_hamming.hamming_nn(q, v, torch.zeros((256, 4), dtype=torch.uint8,
-                                                  device=dev).T, v)
-    with pytest.raises(ValueError, match="on cpu"):
-        cuda_hamming.hamming_nn(q, v, q.cpu(), v)
+    for fn in (cuda_hamming.hamming_nn, cuda_hamming.hamming_nn_match):
+        with pytest.raises(ValueError, match="dtype|is torch"):
+            fn(q.float(), v, q, v)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q, v, torch.zeros((256, 4), dtype=torch.uint8, device=dev).T, v)
+        with pytest.raises(ValueError, match="on cpu"):
+            fn(q, v, q.cpu(), v)
+        with pytest.raises(ValueError, match="aligned"):
+            fn(q, v, torch.zeros(4 * 256 + 1, dtype=torch.uint8,
+                                 device=dev)[1:].view(4, 256), v)

@@ -1,6 +1,8 @@
 """The port runs on the card unless the caller asks for the CPU: every
-object and vocabulary entry point built with the default device raises
-without a card, and the same calls with device="cpu" run."""
+object (a Frame too) and vocabulary entry point built with the default
+device raises without a card, and the same calls with device="cpu" run."""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -9,6 +11,7 @@ import torch
 from orb_slam3_study_kr_tpu_torch import convert
 from orb_slam3_study_kr_tpu_torch.bow import KeyframeDatabase
 from orb_slam3_study_kr_tpu_torch.bow import vocabulary as voc_mod
+from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
 from orb_slam3_study_kr_tpu_torch.pipeline.global_ba import global_bundle_adjustment
 from orb_slam3_study_kr_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam3_study_kr_tpu_torch.pipeline.loop_closing import LoopCloser
@@ -46,6 +49,8 @@ def _dbow2(tmp_path):
 
 
 BUILDS = {
+    "Frame": lambda cfg, tmp: Frame(frame_id=0, timestamp=0.0, n_kp=4,
+                                    device=cfg.device),
     "MonoTracker": lambda cfg, tmp: MonoTracker(cfg, _map()),
     "LocalMapper": lambda cfg, tmp: LocalMapper(cfg=cfg, map=_map()),
     "LoopCloser": lambda cfg, tmp: LoopCloser(cfg=cfg, map=_map(), db=_db()),
@@ -68,6 +73,7 @@ BUILDS = {
 
 def test_tracker_config_defaults_to_the_card():
     assert TrackerConfig().device == "cuda"
+    assert inspect.signature(Frame).parameters["device"].default == "cuda"
     for fn in (voc_mod.train_vocabulary, voc_mod.load_vocabulary,
                voc_mod.load_dbow2_text, voc_mod.vocabulary_from_arrays,
                convert.vocabulary_from_numpy):

@@ -150,3 +150,79 @@ def test_match_by_descriptor_equals_plain(W):
     b = match_by_descriptor_plain(_T(q), _T(qv), _T(t), _T(tv))
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def _j_masked(q, qv, t, tv):
+    """The reference's masked matrix (track_match.py:211-213)."""
+    d = hamming_matrix(jnp.asarray(q), jnp.asarray(t))
+    return jnp.where(jnp.asarray(qv)[:, None] & jnp.asarray(tv)[None, :], d, BIG)
+
+
+def _j_back(q, qv, t, tv):
+    """The reference's column argmin (track_match.py:219)."""
+    return jnp.argmin(_j_masked(q, qv, t, tv), axis=0)
+
+
+def _tie_case(rng, Q, T, n_proto=4):
+    """Descriptors from a few prototypes (many column ties), a share of
+    invalid queries and targets."""
+    proto = _bits(rng, (n_proto, 256))
+    q = proto[rng.integers(0, n_proto, Q)]
+    t = proto[rng.integers(0, n_proto, T)]
+    return q, rng.random(Q) > 0.3, t, rng.random(T) > 0.25
+
+
+def test_hamming_nn_columns_match_reference():
+    """back (the column output of the one masked matrix) equals the
+    reference's jnp.argmin over axis 0 exactly: column ties among
+    prototypes go to the lowest valid query, an invalid target gets 0;
+    the rows of the same call equal hamming_nn's."""
+    rng = np.random.default_rng(6)
+    q, qv, t, tv = _tie_case(rng, 60, 70)
+    tv[:3] = False
+    best, second, idx, back = cuda_hamming.hamming_nn_match(
+        _T(q), _T(qv), _T(t), _T(tv))
+    jback = np.asarray(_j_back(q, qv, t, tv))
+    np.testing.assert_array_equal(back.numpy(), jback)
+    assert back.dtype == torch.int32 and back.shape == (70,)
+    assert (back.numpy()[~tv] == 0).all()
+    first_valid = int(np.nonzero(qv)[0][0])
+    assert (jback[tv] >= first_valid).all()
+    D = np.asarray(_j_masked(q, qv, t, tv))
+    assert (D[back.numpy(), np.arange(70)] == D.min(0)).all()
+    for x, y in zip((best, second, idx), cuda_hamming.hamming_nn(
+            _T(q), _T(qv), _T(t), _T(tv))):
+        assert torch.equal(x, y)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(D.argmin(1)))
+
+
+def test_hamming_nn_columns_window_matches_reference_vmap():
+    """The loop window layout, W = 3 target sets against one shared query
+    set, against jax.vmap of the reference's expression; one target set
+    all invalid."""
+    rng = np.random.default_rng(7)
+    q, qv, _, _ = _tie_case(rng, 50, 1)
+    t = np.stack([_tie_case(rng, 1, 40)[2] for _ in range(3)])
+    tv = rng.random((3, 40)) > 0.25
+    tv[1] = False
+    jback = jax.vmap(lambda td, tvv: _j_back(q, qv, td, tvv))(
+        jnp.asarray(t), jnp.asarray(tv))
+    best, second, idx, back = cuda_hamming.hamming_nn_match(
+        _T(q), _T(qv), _T(t), _T(tv))
+    assert back.shape == (3, 40) and idx.shape == (3, 50)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(jback))
+    assert (back.numpy()[1] == 0).all()
+
+
+@pytest.mark.parametrize("Q,T", [(1, 30), (30, 1), (1, 1)])
+def test_hamming_nn_columns_single_row_or_column(Q, T):
+    """Q = 1 and T = 1: back and the rows equal the reference's argmins."""
+    rng = np.random.default_rng(8 + Q + T)
+    q, qv, t, tv = _tie_case(rng, Q, T, n_proto=2)
+    qv[:] = True
+    best, second, idx, back = cuda_hamming.hamming_nn_match(
+        _T(q), _T(qv), _T(t), _T(tv))
+    D = _j_masked(q, qv, t, tv)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(jnp.argmin(D, axis=0)))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jnp.argmin(D, axis=1)))
+    np.testing.assert_array_equal(best.numpy(), np.asarray(jnp.min(D, axis=1)))

@@ -117,7 +117,7 @@ def test_relocalization_on_carried_map_matches_reference(reference):
     host = ref["host"]
     assert (slam.db.detect_relocalization_candidates(host["desc"], host["valid"])
             == ref["cands"])
-    frame = Frame(frame_id=999, timestamp=99.0,
+    frame = Frame(frame_id=999, timestamp=99.0, device="cpu",
                   **{k: v.copy() for k, v in host.items()})
     assert slam._relocalize(frame)
     searched = slam.sys_stats.pop("n_reloc_searched")

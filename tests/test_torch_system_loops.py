@@ -41,7 +41,7 @@ def _make_frame(slam, world, R, t, seed=123):
     rng = np.random.default_rng(seed)
     img = synthetic.render_textured(world, R, t, rng=rng)
     feats = orb.extract_orb(torch.as_tensor(img), slam.cfg.tracker.orb_config)
-    return Frame(frame_id=999, timestamp=99.0,
+    return Frame(frame_id=999, timestamp=99.0, device="cpu",
                  **{k: getattr(feats, k).numpy().copy() for k in
                     ("uv", "level", "angle", "response", "desc", "valid")})
 
