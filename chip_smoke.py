@@ -32,9 +32,16 @@ the int8 tensor-core rate of 1979 T/s).
   8. BoW relocalization of re-rendered views of frames 14 and 26 against
      that map;
   9. loop correction on the ring world (a first pass of 18 keyframes and
-     three drifted revisits) with LoopCloser(run_gba=True).
-Phases 6-9 are the main paths: each resets the kernels' launch counters just
-before it and reads them just after; the kernels line sums them.  Any
+     three drifted revisits) with LoopCloser(run_gba=True);
+ 10. rectified stereo: the 30-frame lateral stereo session (seed 3,
+     baseline 0.11, loop closing on) through SlamSystem.track_stereo, after
+     match_stereo on the first pair on the card against the same call on
+     the CPU;
+ 11. RGB-D: the 20-frame lateral session (seed 7) through track_rgbd;
+ 12. the background mapping worker: the 40-frame monocular session of
+     seed 5 with SystemConfig(async_mapping=True), flushed at the end.
+Phases 6-12 are the main paths: each resets the kernels' launch counters
+just before it and reads them just after; the kernels line sums them.  Any
 failure raises (non-zero exit).  Before the last two lines the script prints
 its own seconds; the line before the last is the kernels JSON; the last line
 is {"ok": true, "device": {...}}.  Imports only the port, torch and numpy.
@@ -59,8 +66,13 @@ PKG = "orb_slam3_study_kr_tpu_torch"
 # 0..255) allows for a different multiply-add contraction in the plain
 # version's elementwise kernels.  K2's and K3's distances are integer
 # popcounts: (best, second, idx) must be identical, and so must
-# match_by_descriptor's (idx, ok, best).
+# match_by_descriptor's (idx, ok, best).  match_stereo on the card against
+# the CPU: the bar of tests/test_torch_stereo.py (ok on >= 99.5 % of the
+# keypoints; where both accept, u_r within 1e-3 px, depth within 1e-4
+# relative), since the SAD sums may add in another order.
 BLUR_TOL = 1e-4
+STEREO_OK_AGREE, STEREO_UR_TOL, STEREO_DEPTH_RTOL = 0.995, 1e-3, 1e-4
+BASELINE = 0.11
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth,
 # the float32 rate outside the tensor cores, which the integer and
@@ -379,7 +391,7 @@ class _Launches:
 
     def __exit__(self, *exc):
         import torch
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()       # every stream, the worker's too
         self.counts = {k: f.launches for k, f in self.wrappers.items()}
         return False
 
@@ -622,6 +634,198 @@ def phase_loop_correction(dev):
                 wall_s=wall, launches=counter.counts)
 
 
+def _centers(R_gt, t_gt):
+    import numpy as np
+    return -np.einsum("nij,nj->ni", R_gt.transpose(0, 2, 1), t_gt)
+
+
+def _sensor_session(dev, sensor, frames, R_gt, t_gt, dt, final_ok=True,
+                    **cfg_kw):
+    """Drive one session through its public entry point with the launch
+    counters reset around it; returns (slam, result dict).  The final state
+    must be OK, or with final_ok=False anything but LOST."""
+    import numpy as np
+    import torch
+    from orb_slam3_study_kr_tpu_torch.evaluation import ate_rmse
+    from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
+    from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackState
+    n = len(frames)
+    slam = SlamSystem(SystemConfig(sensor=sensor, device=str(dev), **cfg_kw))
+    track = dict(mono=slam.track_monocular, stereo=slam.track_stereo,
+                 rgbd=slam.track_rgbd)[sensor]
+    with _Launches() as counter:
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            track(*f, i * dt)
+        slam.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if slam.state != TrackState.OK and (final_ok
+                                        or slam.state == TrackState.LOST):
+        raise AssertionError(f"{sensor}: final state {slam.state}")
+    rows = slam.trajectory()
+    if not np.isfinite(rows[:, 1:]).all():
+        raise AssertionError(f"{sensor}: non-finite trajectory")
+    ts = np.arange(n) * dt
+    metric, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4], ts, _centers(R_gt, t_gt),
+                             with_scale=False)
+    scaled, _, s_fit = ate_rmse(rows[:, 0], rows[:, 1:4], ts,
+                                _centers(R_gt, t_gt), with_scale=True)
+    stats = slam.stats()
+    fused = slam.tracker.stats.get("fused_frames", 0)
+    k2 = counter.counts["gated_nn"]
+    if fused < 1 or k2 < 4 * fused:
+        raise AssertionError(f"{sensor}: K2 launched {k2} times over {fused} "
+                             "fused frames")
+    warm = np.asarray(slam.timings[5:]) * 1e3
+    stages = {k: round(v["median_ms"], 3) for k, v in stats["stages"].items()}
+    return slam, dict(
+        state=slam.state.name, ate_metric=metric, ate_scaled=scaled,
+        scale=s_fit, nm=nm,
+        n_kf=stats["n_kf"], n_lm=stats["n_lm"], loops=stats["loops"],
+        mapper=stats["mapper"], frame_ms_median_warm=float(np.median(warm)),
+        frame_ms=[float(x) for x in np.asarray(slam.timings) * 1e3],
+        stage_medians=stages, launches=counter.counts, fused_frames=fused,
+        wall_s=wall)
+
+
+def _stereo_match_check(dev, imgL, imgR):
+    """match_stereo on the card against the same call on the CPU, on the
+    card's features of one pair."""
+    import numpy as np
+    import torch
+    from orb_slam3_study_kr_tpu_torch.ops import orb, stereo
+    cfg = orb.OrbConfig()
+    fL = orb.extract_orb(torch.as_tensor(imgL, device=dev), cfg)
+    fR = orb.extract_orb(torch.as_tensor(imgR, device=dev), cfg)
+    args = (fL.uv, fL.level, fL.desc, fL.valid, fR.uv, fR.level, fR.desc,
+            fR.valid, torch.as_tensor(imgL, device=dev),
+            torch.as_tensor(imgR, device=dev), 458.0, BASELINE)
+    gu, gd, gok = [a.cpu().numpy() for a in stereo.match_stereo(*args)]
+    cu, cd, cok = [a.numpy() for a in stereo.match_stereo(
+        *[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])]
+    both = gok & cok
+    agree = float((gok == cok).mean())
+    ur_err = float(np.abs(gu[both] - cu[both]).max())
+    d_err = float((np.abs(gd[both] - cd[both]) / cd[both]).max())
+    if cok.sum() < 250 or agree < STEREO_OK_AGREE or ur_err >= STEREO_UR_TOL \
+            or d_err >= STEREO_DEPTH_RTOL:
+        raise AssertionError(f"match_stereo card vs CPU: {int(cok.sum())} "
+                             f"accepted, ok agreement {agree}, u_r err "
+                             f"{ur_err}, depth rel err {d_err}")
+    return dict(n_ok=int(gok.sum()), ok_agree=agree, ur_max_err=ur_err,
+                depth_max_rel_err=d_err)
+
+
+def phase_stereo(dev):
+    import numpy as np
+    from orb_slam3_study_kr_tpu_torch.io import synthetic
+    from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig
+    n = 30
+    rng = np.random.default_rng(3)
+    world = synthetic.make_textured_world(rng, depth=6.0)
+    R_gt, t_gt = synthetic.lateral_trajectory(n, x_span=1.0, z_span=0.0,
+                                              y_amp=0.0)
+    pairs = []
+    for i in range(n):
+        imgL = synthetic.render_textured(world, R_gt[i], t_gt[i], rng=rng)
+        _, t_r = synthetic.stereo_right_pose(R_gt[i], t_gt[i], BASELINE)
+        pairs.append((imgL, synthetic.render_textured(world, R_gt[i], t_r,
+                                                      rng=rng)))
+    check = _stereo_match_check(dev, *pairs[0])
+    _, r = _sensor_session(dev, "stereo", pairs, R_gt, t_gt, 0.1,
+                           baseline=BASELINE,
+                           tracker=TrackerConfig(fps=10, device=str(dev)))
+    k1 = r["launches"]["fast_nms_blur"]
+    if k1 != 2 * n:
+        raise AssertionError(f"stereo: K1 launched {k1} times, expected two "
+                             f"per frame ({2 * n})")
+    if not (r["nm"] > 20 and r["ate_metric"] < 0.15
+            and abs(r["scale"] - 1.0) < 0.10):
+        raise AssertionError(f"stereo: nm {r['nm']} metric ATE "
+                             f"{r['ate_metric']} scale {r['scale']}")
+    if "track/stereo_match" not in r["stage_medians"]:
+        raise AssertionError("stereo: no track/stereo_match stage")
+    print(f"phase stereo path: match_stereo card vs CPU on the first pair "
+          f"{json.dumps(check)}; {n} frames, loop closing on, state OK, n_kf "
+          f"{r['n_kf']}, n_lm {r['n_lm']}, metric ATE {r['ate_metric']:.5f} "
+          f"over {r['nm']} frames, scale {r['scale']:.5f}; warm per-frame "
+          f"median {r['frame_ms_median_warm']:.2f} ms, wall {r['wall_s']:.2f} "
+          f"s; stage medians (ms) {json.dumps(r['stage_medians'])}; launches "
+          f"{r['launches']} over {r['fused_frames']} fused frames")
+    return dict(r, match_check=check)
+
+
+def phase_rgbd(dev):
+    import numpy as np
+    from orb_slam3_study_kr_tpu_torch.io import synthetic
+    from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig
+    n = 20
+    rng = np.random.default_rng(7)
+    world = synthetic.make_textured_world(rng, depth=6.0)
+    R_gt, t_gt = synthetic.lateral_trajectory(n, x_span=0.7, z_span=0.0,
+                                              y_amp=0.0)
+    frames = []
+    for i in range(n):
+        img, depth = synthetic.render_textured(world, R_gt[i], t_gt[i],
+                                               rng=rng, return_depth=True)
+        frames.append((img, np.where(np.isfinite(depth), depth, 0.0)))
+    _, r = _sensor_session(dev, "rgbd", frames, R_gt, t_gt, 0.1,
+                           baseline=BASELINE,
+                           tracker=TrackerConfig(fps=10, device=str(dev)))
+    k1 = r["launches"]["fast_nms_blur"]
+    if k1 != n:
+        raise AssertionError(f"rgbd: K1 launched {k1} times, expected one per "
+                             f"frame ({n})")
+    if not (r["nm"] > 12 and r["ate_metric"] < 0.15):
+        raise AssertionError(f"rgbd: nm {r['nm']} metric ATE {r['ate_metric']}")
+    print(f"phase RGB-D path: {n} frames, loop closing on, state OK, n_kf "
+          f"{r['n_kf']}, metric ATE {r['ate_metric']:.5f} over {r['nm']} "
+          f"frames; warm per-frame median {r['frame_ms_median_warm']:.2f} ms, "
+          f"wall {r['wall_s']:.2f} s; stage medians (ms) "
+          f"{json.dumps(r['stage_medians'])}; launches {r['launches']} over "
+          f"{r['fused_frames']} fused frames")
+    return r
+
+
+def phase_async(dev, sync_warm_ms):
+    import numpy as np
+    from orb_slam3_study_kr_tpu_torch.io import synthetic
+    n = 40
+    rng = np.random.default_rng(5)
+    world = synthetic.make_textured_world(rng)
+    R_gt, t_gt = synthetic.lateral_trajectory(n, x_span=1.0)
+    frames = [(synthetic.render_textured(world, R_gt[i], t_gt[i], rng=rng),)
+              for i in range(n)]
+    # The final state is not held: the pose sanity gate (relative to the
+    # recent steps) fires about once in this session, synchronous or not,
+    # and with the worker the frame it fires at depends on its timing.
+    slam, r = _sensor_session(dev, "mono", frames, R_gt, t_gt, 0.05,
+                              final_ok=False, async_mapping=True)
+    worker = dict(slam.async_map.stats)
+    slam.shutdown()
+    k1 = r["launches"]["fast_nms_blur"]
+    if k1 != n:
+        raise AssertionError(f"async: K1 launched {k1} times, expected {n}")
+    if not (worker["n_processed"] > 0 and worker["n_errors"] == 0
+            and r["mapper"]["n_created"] > 0 and r["mapper"]["n_ba"] > 0):
+        raise AssertionError(f"async: worker {worker} mapper {r['mapper']}")
+    if not (r["nm"] > 25 and r["ate_scaled"] < 0.4):
+        raise AssertionError(f"async: nm {r['nm']} scaled ATE {r['ate_scaled']}")
+    print(f"phase async mapping path: {n} frames, final state {r['state']}, "
+          f"sanity-gate rejections {slam.tracker.stats.get('sanity_fail', 0)}, "
+          f"worker {worker}, "
+          f"n_kf {r['n_kf']}, mapper n_created {r['mapper']['n_created']} "
+          f"n_ba {r['mapper']['n_ba']}, scaled ATE {r['ate_scaled']:.5f} over "
+          f"{r['nm']} frames; warm per-frame median "
+          f"{r['frame_ms_median_warm']:.2f} ms (the synchronous default "
+          f"session of this run: {sync_warm_ms:.2f} ms), wall "
+          f"{r['wall_s']:.2f} s; stage medians (ms) "
+          f"{json.dumps(r['stage_medians'])}; launches {r['launches']} over "
+          f"{r['fused_frames']} fused frames")
+    return dict(r, worker=worker, sync_frame_ms_median_warm=sync_warm_ms)
+
+
 def main(argv=None):
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -656,7 +860,10 @@ def main(argv=None):
     slam, world, R_gt, t_gt, out["default"] = phase_default(dev)
     out["reloc"] = phase_reloc(dev, slam, world, R_gt, t_gt)
     out["loop"] = phase_loop_correction(dev)
-    paths = ("loop_off", "default", "reloc", "loop")
+    out["stereo"] = phase_stereo(dev)
+    out["rgbd"] = phase_rgbd(dev)
+    out["async"] = phase_async(dev, out["default"]["frame_ms_median_warm"])
+    paths = ("loop_off", "default", "reloc", "loop", "stereo", "rgbd", "async")
     launches = {k: sum(out[p]["launches"][k] for p in paths)
                 for k in ("fast_nms_blur", "gated_nn", "hamming_nn")}
     kernels = []

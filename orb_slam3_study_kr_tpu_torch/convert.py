@@ -7,7 +7,10 @@ this module imports neither package's JAX side:
 
 - ``tracker_config_from_dict`` / ``system_config_from_dict`` build the
   port's configs from a dict of the reference configs' fields
-  (``dataclasses.asdict`` of them);
+  (``dataclasses.asdict`` of them).  A reference field the port does not
+  have converts only at its reference default (``REFERENCE_ONLY``); any
+  other value, and any key neither config knows, raises ValueError rather
+  than giving a session that runs something else;
 - ``tracker_state_from_numpy`` loads a map's numpy tables plus the
   tracker's host state into a port ``MonoTracker``, so that one frame can be
   tracked in both packages from the same state;
@@ -34,15 +37,56 @@ from orb_slam3_study_kr_tpu_torch.pipeline.system import SystemConfig
 from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig, TrackState
 
 
-def _known(cls, d):
+# Fields of the reference configs that the port's configs do not have, with
+# the reference's default values: the fisheye lens limits (ROADMAP item 16)
+# and the IMU settings (item 15).  The reference options the port has but
+# does not run yet (the item 12a tracker knobs, the fisheye stereo rig) are
+# fields of the port's configs, which refuse non-default values when a
+# session is built.
+REFERENCE_ONLY = {
+    "TrackerConfig": {
+        "fov_max_deg": 75.0,
+        "fisheye_half_fov_deg": 98.0,
+    },
+    "SystemConfig": {
+        "imu_noise_gyro": 1.7e-4,
+        "imu_noise_acc": 2e-3,
+        "imu_walk_gyro": 1.9e-5,
+        "imu_walk_acc": 3e-3,
+        "imu_freq": 200.0,
+        "imu_R_bc": None,
+        "imu_t_bc": None,
+        "imu_init_times": (2.0, 5.0, 15.0),
+    },
+}
+
+
+def _plain(v):
+    return tuple(_plain(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+
+def _port_kwargs(cls, d):
+    """The entries of d that are fields of the port's ``cls``.  A
+    reference-only field is dropped at its reference default; another value,
+    or a key neither config has, raises ValueError."""
     names = {f.name for f in dataclasses.fields(cls)}
-    return {k: v for k, v in d.items() if k in names}
+    ref_only = REFERENCE_ONLY[cls.__name__]
+    kw = {}
+    for k, v in d.items():
+        if k in names:
+            kw[k] = v
+        elif k not in ref_only:
+            raise ValueError(f"{cls.__name__}: unknown field {k!r}")
+        elif _plain(v) != _plain(ref_only[k]):
+            raise ValueError(
+                f"{cls.__name__}.{k}={v!r}: the port has no such option; only "
+                f"the reference default {ref_only[k]!r} converts")
+    return kw
 
 
 def tracker_config_from_dict(d, **overrides) -> TrackerConfig:
-    """Port TrackerConfig from the reference TrackerConfig's fields; fields
-    the port does not have are dropped."""
-    kw = _known(TrackerConfig, d)
+    """Port TrackerConfig from the reference TrackerConfig's fields."""
+    kw = _port_kwargs(TrackerConfig, d)
     if "dist" in kw:
         kw["dist"] = tuple(kw["dist"])
     kw.update(overrides)
@@ -52,7 +96,8 @@ def tracker_config_from_dict(d, **overrides) -> TrackerConfig:
 def system_config_from_dict(d, device="cuda", **overrides) -> SystemConfig:
     """Port SystemConfig from the reference SystemConfig's fields (the
     nested ``tracker`` dict included)."""
-    kw = _known(SystemConfig, d)
+    kw = _port_kwargs(SystemConfig, {k: v for k, v in d.items()
+                                     if k != "tracker"})
     kw["tracker"] = tracker_config_from_dict(d.get("tracker", {}))
     kw["device"] = device
     kw.update(overrides)

@@ -1,1 +1,1 @@
-"""Synthetic scene rendering (numpy)."""
+"""Synthetic scene rendering and stereo rectification (numpy)."""

@@ -95,7 +95,7 @@ def fast_nms_blur_pyramid_call(levels, th_min: float, th_ini: float):
         err = lib.fast_nms_blur_pyramid(
             *argv, torch.cuda.current_stream(dev).cuda_stream)
         cuda_lib.check(err, "fast_nms_blur_pyramid")
-        fast_nms_blur_pyramid.launches += 1
+        cuda_lib.count_launch(fast_nms_blur_pyramid)
 
     maps = [part.view(4, H, W)
             for part, (H, W) in zip(out.split(sizes, dim=1), shapes)]

@@ -131,7 +131,7 @@ def hamming_nn_call(q_desc, q_valid, t_desc, t_valid, columns=False):
     def launch(keep=keep):
         err = lib.hamming_nn(*argv, torch.cuda.current_stream(dev).cuda_stream)
         cuda_lib.check(err, "hamming_nn")
-        hamming_nn.launches += 1
+        cuda_lib.count_launch(hamming_nn)
 
     out = (best, second, idx)
     if columns:

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -23,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _lib = None
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -93,3 +95,11 @@ def load():
 def check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def count_launch(wrapper):
+    """Add one to ``wrapper.launches``.  The tracker and the background
+    mapping worker launch the same kernels from two threads, and ``+=`` on
+    an attribute is not atomic."""
+    with _count_lock:
+        wrapper.launches += 1

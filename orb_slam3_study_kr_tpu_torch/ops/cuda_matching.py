@@ -173,7 +173,7 @@ def gated_nn_call(q_desc, q_uv, q_level, q_valid,
     def launch(keep=(ins, best, second, idx)):
         err = lib.gated_nn(*argv, torch.cuda.current_stream(dev).cuda_stream)
         cuda_lib.check(err, "gated_nn")
-        gated_nn.launches += 1
+        cuda_lib.count_launch(gated_nn)
 
     if not batched:
         return launch, (best[0], second[0], idx[0])

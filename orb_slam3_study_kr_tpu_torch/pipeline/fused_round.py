@@ -1,15 +1,17 @@
 """The whole per-frame tracking slice as one torch function.
 
 Counterpart of ``orb_slam3_study_kr_tpu/pipeline/fused_round.py``
-(``fused_track_frame``, mono, KLT on): a flow-anchor prologue with KLT
+(``fused_track_frame``, KLT on): a flow-anchor prologue with KLT
 verification and a pose pre-solve, a motion-model round with wide gates,
 the gated wide retry, then the local-map rounds.  Each round is match (K2)
--> KLT verify -> bind -> pose GN.  Every step runs on the device of its
-inputs with no host synchronisation; the gated retry is always computed and
-its effects masked, as in the reference program.  The frame's descriptors
-are packed into K2's words once per call and shared by every round; the
-landmark block's descriptors may come packed already (the tracker caches
-them with the block).
+-> KLT verify -> bind -> pose GN.  For stereo and RGB-D frames the right
+coordinate ``ur`` rides along: every pose solve gets the stereo row, and a
+KLT move of a keypoint with ur >= 0 shifts ur by the same du.  Every step
+runs on the device of its inputs with no host synchronisation; the gated
+retry is always computed and its effects masked, as in the reference
+program.  The frame's descriptors are packed into K2's words once per call
+and shared by every round; the landmark block's descriptors may come
+packed already (the tracker caches them with the block).
 """
 
 import torch
@@ -74,7 +76,7 @@ def _round(project_fn, project_jac_fn, undistort_fn, R, t,
            f_uv, f_level, f_desc, f_valid, f_uv_raw, f_angle,
            pyr, level_wh, width, height, th, nn_ratio, scale_factor,
            n_levels, level_slack, klt_zncc_min, klt_max_shift,
-           klt_distinct_min, move_obs, apply_gate=None):
+           klt_distinct_min, move_obs, ur=None, bf=None, apply_gate=None):
     """One match -> KLT verify -> bind -> pose-GN round.  With
     ``apply_gate`` (a bool tensor) the round's effects apply only where it
     is True."""
@@ -98,7 +100,7 @@ def _round(project_fn, project_jac_fn, undistort_fn, R, t,
     bound = (kp_lm_new != NO_LM) & f_valid
     R_new, t_new, inl, _ = optimize_pose(
         project_fn, project_jac_fn, R, t, X, f_uv, f_level,
-        bound.to(torch.float32))
+        bound.to(torch.float32), ur_obs=ur, bf=bf)
     R = torch.where(gate, R_new, R)
     t = torch.where(gate, t_new, t)
     inl = inl & bound
@@ -115,10 +117,21 @@ def _round(project_fn, project_jac_fn, undistort_fn, R, t,
     moved = torch.zeros_like(good)
     if move_obs:
         moved = good & inl & (distinct >= klt_distinct_min)
-        f_uv_raw = torch.where(moved[:, None], uv_ref, f_uv_raw)
-        f_uv = torch.where(moved[:, None], undistort_fn(f_uv_raw), f_uv)
+        f_uv, f_uv_raw, ur = _apply_moves(moved, uv_ref, f_uv, f_uv_raw, ur,
+                                          undistort_fn)
     return (R, t, kp_lm, kp_lm_pos, inl, lm_mask, visible,
-            f_uv, f_uv_raw, moved, taken)
+            f_uv, f_uv_raw, ur, moved, taken)
+
+
+def _apply_moves(move, uv_ref, f_uv, f_uv_raw, ur, undistort_fn):
+    """Write accepted KLT moves into the frame coordinates; a stereo
+    keypoint's right coordinate shifts by the same du."""
+    if ur is not None:
+        du = uv_ref[:, 0] - f_uv_raw[:, 0]
+        ur = torch.where(move & (ur >= 0), ur + du, ur)
+    f_uv_raw = torch.where(move[:, None], uv_ref, f_uv_raw)
+    f_uv = torch.where(move[:, None], undistort_fn(f_uv_raw), f_uv)
+    return f_uv, f_uv_raw, ur
 
 
 def fused_track_frame(
@@ -137,17 +150,21 @@ def fused_track_frame(
     wide_slack=7, local_slack=1,
     klt_zncc_min=0.5, klt_max_shift=3.0, klt_distinct_min=0.15,
     n_local_rounds=2, move_obs=True,
+    ur_obs=None, bf=None,
     flow=None, flow_radius=40.0,
     R_last=None, t_last=None,
 ):
     """The whole per-frame tracking slice (see the module docstring).
     lm_desc is (L, 256) uint8 bits or (L, 8) int32 words; f_desc is the
-    frame's (N, 256) uint8 bits.
+    frame's (N, 256) uint8 bits; ur_obs (N,) the right coordinates of a
+    stereo or RGB-D frame (-1 = mono) with bf = fx * baseline, or None.
 
     Returns (R, t, kp_lm, inliers, visible_round1, n_mm,
-    (f_uv, f_uv_raw, moved), n_flow), all tensors on the input device."""
+    (f_uv, f_uv_raw, ur, moved), n_flow), all tensors on the input device
+    (ur None for a mono frame)."""
     dev = R0.device
     R, t = R0, t0
+    ur = ur_obs
     moved_any = torch.zeros(f_uv.shape[0], dtype=torch.bool, device=dev)
     n_flow = torch.zeros((), dtype=torch.int64, device=dev)
     mask_l = mask_all
@@ -169,8 +186,8 @@ def fused_track_frame(
         n_flow = took.sum()
         if move_obs:
             move = fl_good & (fl_distinct >= klt_distinct_min)
-            f_uv_raw = torch.where(move[:, None], fl_uv_ref, f_uv_raw)
-            f_uv = torch.where(move[:, None], undistort_fn(f_uv_raw), f_uv)
+            f_uv, f_uv_raw, ur = _apply_moves(move, fl_uv_ref, f_uv, f_uv_raw,
+                                              ur, undistort_fn)
             moved_any = moved_any | move
         # Pose pre-solve on the pose-free bindings, started from the LAST
         # pose; applied when the prologue bound >= 20 features.
@@ -178,7 +195,7 @@ def fused_track_frame(
             bound0 = (kp_lm != NO_LM) & f_valid
             R_fl, t_fl, _, _ = optimize_pose(
                 project_fn, project_jac_fn, R_last, t_last, kp_lm_pos,
-                f_uv, f_level, bound0.to(torch.float32))
+                f_uv, f_level, bound0.to(torch.float32), ur_obs=ur, bf=bf)
             use_fl = bound0.sum() >= 20
             R = torch.where(use_fl, R_fl, R)
             t = torch.where(use_fl, t_fl, t)
@@ -191,7 +208,7 @@ def fused_track_frame(
     lm_words = as_words(lm_desc)
 
     def run(Rc, tc, kp_lm, kp_lm_pos, mask, wide, th, slack, f_uv, f_uv_raw,
-            gate=None):
+            ur, gate=None):
         gates = ((lm_normal_w, lm_min_w, lm_max_w) if wide
                  else (lm_normal, lm_min_dist, lm_max_dist))
         return _round(project_fn, project_jac_fn, undistort_fn, Rc, tc,
@@ -199,38 +216,39 @@ def fused_track_frame(
                       kp_lm, kp_lm_pos,
                       f_uv, f_level, f_words, f_valid, f_uv_raw, f_angle,
                       pyr, level_wh, width, height, th, level_slack=slack,
-                      apply_gate=gate, **common)
+                      ur=ur, bf=bf, apply_gate=gate, **common)
 
     # Motion-model round (wide gates over the wide-eligible rows), then the
     # in-program widened retry, which restarts from the base pose and takes
     # effect only when the first pass bound too few.
     R_base, t_base = R, t
-    (R, t, kp_lm, kp_lm_pos, inl, _mw, _vis, f_uv, f_uv_raw, mv, taken) = run(
-        R, t, kp_lm, kp_lm_pos, mask_l * mask_wide, True, th_wide, wide_slack,
-        f_uv, f_uv_raw)
+    (R, t, kp_lm, kp_lm_pos, inl, _mw, _vis, f_uv, f_uv_raw, ur, mv,
+     taken) = run(R, t, kp_lm, kp_lm_pos, mask_l * mask_wide, True, th_wide,
+                  wide_slack, f_uv, f_uv_raw, ur)
     mask_l = mask_l * (1.0 - taken)
     moved_any = moved_any | mv
     need_retry = (kp_lm != NO_LM).sum() < min_track_matches
     R_r = torch.where(need_retry, R_base, R)
     t_r = torch.where(need_retry, t_base, t)
-    (R, t, kp_lm, kp_lm_pos, inl, _mw, _vis, f_uv, f_uv_raw, mv, taken) = run(
-        R_r, t_r, kp_lm, kp_lm_pos, mask_l * mask_wide, True, th_wide_retry,
-        wide_slack, f_uv, f_uv_raw, gate=need_retry)
+    (R, t, kp_lm, kp_lm_pos, inl, _mw, _vis, f_uv, f_uv_raw, ur, mv,
+     taken) = run(R_r, t_r, kp_lm, kp_lm_pos, mask_l * mask_wide, True,
+                  th_wide_retry, wide_slack, f_uv, f_uv_raw, ur,
+                  gate=need_retry)
     mask_l = mask_l * (1.0 - taken)
     moved_any = moved_any | mv
     n_mm = (kp_lm != NO_LM).sum()
 
     visible_r1 = None
     for _ in range(n_local_rounds):
-        (R, t, kp_lm, kp_lm_pos, inl, mask_l, vis, f_uv, f_uv_raw, mv,
+        (R, t, kp_lm, kp_lm_pos, inl, mask_l, vis, f_uv, f_uv_raw, ur, mv,
          _tk) = run(R, t, kp_lm, kp_lm_pos, mask_l, False, th_local,
-                    local_slack, f_uv, f_uv_raw)
+                    local_slack, f_uv, f_uv_raw, ur)
         moved_any = moved_any | mv
         if visible_r1 is None:
             visible_r1 = vis
 
     return (R, t, kp_lm, inl, visible_r1, n_mm,
-            (f_uv, f_uv_raw, moved_any), n_flow)
+            (f_uv, f_uv_raw, ur, moved_any), n_flow)
 
 
 def fused_track_rounds(
@@ -245,16 +263,19 @@ def fused_track_rounds(
     th=1.0, nn_ratio=0.8, scale_factor=1.2, n_levels=8, level_slack=1,
     klt_zncc_min=0.5, klt_max_shift=3.0, klt_distinct_min=0.15,
     n_rounds=1, move_obs=True,
+    ur_obs=None, bf=None,
     flow=None, flow_radius=40.0,
 ):
     """``n_rounds`` complete rounds over one padded landmark block (the
     split path's motion-model and local-map steps), optionally after the
-    flow-anchor prologue.  Descriptors as in ``fused_track_frame``.
+    flow-anchor prologue.  Descriptors and ur_obs / bf as in
+    ``fused_track_frame``.
 
     Returns (R, t, kp_lm, inliers, visible_round1,
-    (f_uv, f_uv_raw, moved), n_flow)."""
+    (f_uv, f_uv_raw, ur, moved), n_flow)."""
     dev = R0.device
     R, t = R0, t0
+    ur = ur_obs
     inl = torch.zeros(f_uv.shape[0], dtype=torch.bool, device=dev)
     moved_any = torch.zeros_like(inl)
     n_flow = torch.zeros((), dtype=torch.int64, device=dev)
@@ -267,22 +288,24 @@ def fused_track_rounds(
         n_flow = took.sum()
         if move_obs:
             move = fl_good & (fl_distinct >= klt_distinct_min)
-            f_uv_raw = torch.where(move[:, None], fl_uv_ref, f_uv_raw)
-            f_uv = torch.where(move[:, None], undistort_fn(f_uv_raw), f_uv)
+            f_uv, f_uv_raw, ur = _apply_moves(move, fl_uv_ref, f_uv, f_uv_raw,
+                                              ur, undistort_fn)
             moved_any = moved_any | move
     visible_r1 = None
     f_words = as_words(f_desc)
     lm_words = as_words(lm_desc)
     for _ in range(n_rounds):
-        (R, t, kp_lm, kp_lm_pos, inl, lm_mask, visible, f_uv, f_uv_raw, mv,
-         _tk) = _round(project_fn, project_jac_fn, undistort_fn, R, t,
-                       lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_words,
-                       lm_mask, lm_gid, lm_patch, kp_lm, kp_lm_pos,
-                       f_uv, f_level, f_words, f_valid, f_uv_raw, f_angle,
-                       pyr, level_wh, width, height, th, nn_ratio,
-                       scale_factor, n_levels, level_slack, klt_zncc_min,
-                       klt_max_shift, klt_distinct_min, move_obs)
+        (R, t, kp_lm, kp_lm_pos, inl, lm_mask, visible, f_uv, f_uv_raw, ur,
+         mv, _tk) = _round(project_fn, project_jac_fn, undistort_fn, R, t,
+                           lm_pos, lm_normal, lm_min_dist, lm_max_dist,
+                           lm_words, lm_mask, lm_gid, lm_patch, kp_lm,
+                           kp_lm_pos, f_uv, f_level, f_words, f_valid,
+                           f_uv_raw, f_angle, pyr, level_wh, width, height,
+                           th, nn_ratio, scale_factor, n_levels, level_slack,
+                           klt_zncc_min, klt_max_shift, klt_distinct_min,
+                           move_obs, ur=ur, bf=bf)
         moved_any = moved_any | mv
         if visible_r1 is None:
             visible_r1 = visible
-    return (R, t, kp_lm, inl, visible_r1, (f_uv, f_uv_raw, moved_any), n_flow)
+    return (R, t, kp_lm, inl, visible_r1, (f_uv, f_uv_raw, ur, moved_any),
+            n_flow)

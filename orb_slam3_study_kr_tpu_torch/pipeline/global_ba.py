@@ -10,7 +10,9 @@ skipped for memory.  The landmark-sharded multi-device solve is not ported
 
 The map is snapshotted (``_assemble_gba``), solved (``_solve_gba``) and
 written back (``_apply_gba``); rows created between snapshot and write-back
-are corrected through the newest snapshot keyframe.
+are corrected through the newest snapshot keyframe.  With ``cfg.bf > 0``
+the keyframes' stereo rows join the solve and each observation is culled
+at its own chi2 gate.
 """
 
 import contextlib
@@ -20,7 +22,7 @@ import torch
 
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM, MapState
 from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust
-from orb_slam3_study_kr_tpu_torch.solvers.robust import CHI2_MONO
+from orb_slam3_study_kr_tpu_torch.solvers.robust import CHI2_MONO, CHI2_STEREO
 from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
 # Above this dense cross-block size (K * M * 18 floats) the solve switches
@@ -96,6 +98,8 @@ def _assemble_gba(cfg, m: MapState):
                 ouv=_padr(m.kf_kp_uv[okf, okp], O),
                 olev=_padr(m.kf_kp_level[okf, okp], O),
                 omask=_padr(np.ones(okf.size, np.float32), O),
+                our=(_padr(m.kf_kp_ur[okf, okp], O, -1.0) if cfg.bf > 0
+                     else None),
                 # pre-solve poses, for rows created before the write-back
                 R_old=m.kf_R[kfs].copy(), t_old=m.kf_t[kfs].copy(),
                 snap_next_kf=m.next_kf, snap_next_lm=m.next_lm)
@@ -108,10 +112,14 @@ def _solve_gba(cfg, s, n_iters, dev):
     def t(name):
         return torch.as_tensor(s[name], device=dev)
 
+    stereo_kw = {}
+    if s["our"] is not None:
+        stereo_kw = dict(obs_ur=t("our"), bf=cfg.bf)
     R, tr, X_new, chi2, _ = bundle_adjust(
         cfg.project_fn, cfg.project_jac_fn, t("R_all"), t("t_all"),
         t("fixed_p"), t("X"), t("lm_mask"), t("op"), t("ol"), t("ouv"),
-        t("olev"), t("omask"), n_iters=n_iters, assembly=assembly)
+        t("olev"), t("omask"), n_iters=n_iters, assembly=assembly,
+        **stereo_kw)
     return {k: v.cpu().numpy() for k, v in
             dict(R=R, t=tr, X_new=X_new, chi2=chi2).items()}
 
@@ -150,7 +158,10 @@ def _apply_gba(cfg, m, s, out, cull_outliers):
             m.lm_pos[new_lms] = (pc - tn) @ Rn
 
     if cull_outliers:
-        bad = out["chi2"][: okf.size] > CHI2_MONO
+        gate = CHI2_MONO
+        if cfg.bf > 0:
+            gate = np.where(m.kf_kp_ur[okf, okp] >= 0, CHI2_STEREO, CHI2_MONO)
+        bad = out["chi2"][: okf.size] > gate
         m.kf_kp_lm[okf[bad], okp[bad]] = NO_LM
         orphan = np.nonzero(m.lm_valid & (m.landmark_obs_count() < 2))[0]
         if orphan.size:

@@ -2,11 +2,14 @@
 landmark culling, windowed bundle adjustment and keyframe culling.
 
 Counterpart of ``orb_slam3_study_kr_tpu/pipeline/local_mapping.py``,
-synchronous mode, visual only: ``run_once`` drains the keyframe queue —
-MapPointCulling, CreateNewMapPoints (all neighbours in one batched call),
-SearchInNeighbors fusion (all neighbours in one K2 launch), local BA and
-KeyFrameCulling — with the reference's acceptance gates.  Numpy snapshots
-are taken under the map lock; device work runs outside it.
+visual only: ``run_once`` drains the keyframe queue — MapPointCulling,
+CreateNewMapPoints (all neighbours in one batched call), SearchInNeighbors
+fusion (all neighbours in one K2 launch), local BA and KeyFrameCulling —
+with the reference's acceptance gates.  It runs in line on the tracker's
+thread, or on the background worker (``pipeline/async_mapping.py``).
+Numpy snapshots are taken under the map lock; device work runs outside it.
+With ``cfg.bf > 0`` local BA carries the keyframes' stereo rows and culls
+each observation at its own chi2 gate (7.815 stereo, 5.991 mono).
 """
 
 import contextlib
@@ -19,7 +22,7 @@ from orb_slam3_study_kr_tpu_torch import native
 from orb_slam3_study_kr_tpu_torch.ops import track_match, triangulation_match
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM, MapState
 from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust
-from orb_slam3_study_kr_tpu_torch.solvers.robust import CHI2_MONO
+from orb_slam3_study_kr_tpu_torch.solvers.robust import CHI2_MONO, CHI2_STEREO
 from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
 CULL_FOUND_RATIO = 0.25
@@ -355,7 +358,8 @@ class LocalMapper:
         if prob is None:
             return
         R, t, X_new, chi2, _ = bundle_adjust(*prob["args"],
-                                             n_iters=self.ba_iters)
+                                             n_iters=self.ba_iters,
+                                             **prob["stereo_kw"])
         with m.lock:
             self._local_ba_apply(prob, _np(R), _np(t), _np(X_new), _np(chi2))
 
@@ -406,6 +410,11 @@ class LocalMapper:
         R_all = padr(m.kf_R[all_kf], K, 0)
         R_all[all_kf.size:] = np.eye(3)
         t = self._t
+        stereo_kw = {}
+        if cfg.bf > 0:
+            # Stereo observations add the third residual row.
+            stereo_kw = dict(obs_ur=t(padr(m.kf_kp_ur[okf, okp], O, -1.0)),
+                             bf=cfg.bf)
         return dict(
             args=(cfg.project_fn, cfg.project_jac_fn,
                   t(R_all), t(padr(m.kf_t[all_kf], K)), t(padr(fixed, K, 1.0)),
@@ -415,8 +424,8 @@ class LocalMapper:
                   t(padr(m.kf_kp_uv[okf, okp], O)),
                   t(padr(m.kf_kp_level[okf, okp], O)),
                   t(padr(np.ones(okf.size, np.float32), O))),
-            window=window, fixed=fixed, lms=lms, kf_index=kf_index,
-            okf=okf, okp=okp)
+            stereo_kw=stereo_kw, window=window, fixed=fixed, lms=lms,
+            kf_index=kf_index, okf=okf, okp=okp)
 
     def _local_ba_apply(self, prob, R, t, X_new, chi2):
         m = self.map
@@ -427,7 +436,10 @@ class LocalMapper:
         m.kf_R[upd] = R[sel]
         m.kf_t[upd] = t[sel]
         m.lm_pos[lms] = X_new[: lms.size]
-        bad = chi2[: okf.size] > CHI2_MONO
+        gate = CHI2_MONO
+        if self.cfg.bf > 0:
+            gate = np.where(m.kf_kp_ur[okf, okp] >= 0, CHI2_STEREO, CHI2_MONO)
+        bad = chi2[: okf.size] > gate
         m.kf_kp_lm[okf[bad], okp[bad]] = NO_LM
         # Landmarks left with < 2 observations, and landmarks launched to
         # absurd range, are dead.

@@ -1,14 +1,17 @@
-"""Public session API, monocular route.
+"""Public session API: monocular, rectified stereo and RGB-D.
 
 Counterpart of ``orb_slam3_study_kr_tpu/pipeline/system.py``
 (``SystemConfig``, ``SlamSystem``): builds the map and the pipeline stages,
-routes frames through ``track_monocular``, bootstraps the vocabulary and
-the keyframe database, runs loop closing per keyframe, relocalizes lost
-frames by BoW + RANSAC PnP with the widening re-search cascade, handles
-sustained tracking loss (reset or new map) and the timestamp-jump guard,
-and saves trajectories.  Every stage runs on ``SystemConfig.device``;
-"cuda" (the default) raises when no card is present instead of running on
-the CPU.
+routes frames through ``track_monocular``, ``track_stereo`` or
+``track_rgbd``, bootstraps the vocabulary and the keyframe database, runs
+loop closing per keyframe, relocalizes lost frames by BoW + RANSAC PnP with
+the widening re-search cascade, handles sustained tracking loss (reset or
+new map) and the timestamp-jump guard, and saves trajectories.  With
+``async_mapping=True`` mapping and loop closing run on a background worker
+(``pipeline/async_mapping.py``) whose events the tracker thread applies at
+the next frame boundary; ``flush()`` waits for it and ``shutdown()`` stops
+it.  Every stage runs on ``SystemConfig.device``; "cuda" (the default)
+raises when no card is present instead of running on the CPU.
 
 The relocalization PnP draws come from ``uniforms_fn(iters, n)`` when given
 (tests inject the reference's jax.random stream), else from a
@@ -25,8 +28,10 @@ import torch
 from orb_slam3_study_kr_tpu_torch.bow import (KeyframeDatabase, load_dbow2_text,
                                               load_vocabulary, train_vocabulary)
 from orb_slam3_study_kr_tpu_torch.ops.track_match import match_by_descriptor
+from orb_slam3_study_kr_tpu_torch.pipeline.async_mapping import AsyncMapping
 from orb_slam3_study_kr_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam3_study_kr_tpu_torch.pipeline.loop_closing import LoopCloser
+from orb_slam3_study_kr_tpu_torch.pipeline.stereo_tracking import StereoTracker
 from orb_slam3_study_kr_tpu_torch.pipeline.tracking import (MonoTracker,
                                                             TrackerConfig,
                                                             TrackState)
@@ -35,12 +40,21 @@ from orb_slam3_study_kr_tpu_torch.solvers.pnp import ransac_pnp
 from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
 PNP_ITERS = 256
+SENSORS = ("mono", "stereo", "rgbd")
 
 
 @dataclass
 class SystemConfig:
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
+    # "mono" | "stereo" (rectified) | "rgbd"; the "-inertial" sensors are
+    # not ported yet (ROADMAP item 15).
     sensor: str = "mono"
+    baseline: float = 0.11      # stereo baseline [m]; bf = fx * baseline
+    depth_factor: float = 40.0  # close-point threshold = factor * baseline
+    # Fisheye (KB8) stereo rigs (ROADMAP item 16): must stay None.
+    stereo_R_rl: tuple = None
+    stereo_t_rl: tuple = None
+    tracker_right: TrackerConfig = None
     max_kf: int = 300
     max_lm: int = 80000
     enable_loop_closing: bool = True
@@ -55,27 +69,34 @@ class SystemConfig:
     # session's descriptors once vocab_min_kfs keyframes exist.
     vocabulary_path: str = None
     ba_devices: int = 0      # > 1: landmark-sharded global BA (not ported)
+    # Background mapping/loop worker (the reference's LocalMapping and
+    # LoopClosing threads); off = synchronous, deterministic orchestration.
     async_mapping: bool = False
+    async_max_pending: int = 3
     device: str = "cuda"
 
     def check_supported(self):
         """Raise NotImplementedError for reference routes not ported yet."""
-        if self.async_mapping:
-            raise NotImplementedError(
-                "SystemConfig.async_mapping=True: the background mapping "
-                "worker is not ported yet (ROADMAP item 13a)")
         if self.ba_devices > 1:
             raise NotImplementedError(
                 "SystemConfig.ba_devices > 1: the multi-device global BA is "
                 "not ported yet (ROADMAP item 19)")
-        if self.sensor != "mono":
+        if self.sensor.endswith("-inertial"):
             raise NotImplementedError(
-                f"SystemConfig.sensor={self.sensor!r}: only 'mono' is ported; "
-                "stereo/RGB-D is ROADMAP item 14, inertial item 15")
+                f"SystemConfig.sensor={self.sensor!r}: the inertial sensors "
+                "are not ported yet (ROADMAP item 15)")
+        if self.sensor not in SENSORS:
+            raise ValueError(f"SystemConfig.sensor={self.sensor!r}: expected "
+                             f"one of {SENSORS}")
         if self.tracker.camera_model == "kb8":
             raise NotImplementedError(
-                "camera_model='kb8': the fisheye model is not ported yet "
-                "(ROADMAP item 16)")
+                "camera_model='kb8': the fisheye model and the fisheye stereo "
+                "rig are not ported yet (ROADMAP item 16)")
+        for name in ("stereo_R_rl", "stereo_t_rl", "tracker_right"):
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"SystemConfig.{name}: the non-rectified fisheye stereo "
+                    "rig is not ported yet (ROADMAP item 16)")
 
 
 def _np(t):
@@ -90,7 +111,11 @@ class SlamSystem:
         self.cfg = cfg or SystemConfig()
         self.cfg.check_supported()
         self.device = resolve_device(self.cfg.device, "SystemConfig.device")
-        self.cfg.tracker = dataclasses.replace(self.cfg.tracker,
+        bf = self.cfg.tracker.bf
+        if self.cfg.sensor in ("stereo", "rgbd") and bf == 0.0:
+            bf = self.cfg.tracker.fx * self.cfg.baseline
+        # The tracker, the mapper and the loop closer share this config.
+        self.cfg.tracker = dataclasses.replace(self.cfg.tracker, bf=bf,
                                                device=str(self.device))
         self.ransac_sets_fn = ransac_sets_fn
         self.uniforms_fn = uniforms_fn
@@ -102,6 +127,10 @@ class SlamSystem:
         self.map_dbs = {}        # map_id -> KeyframeDatabase
         self.timings = []
         self.sys_stats = {}
+        self.async_map = None
+        if self.cfg.async_mapping:
+            self.async_map = AsyncMapping(
+                max_pending=self.cfg.async_max_pending, device=self.device)
         self._new_active_map()
 
     def _t(self, a, dtype=None):
@@ -118,6 +147,7 @@ class SlamSystem:
                                         on_kf_culled=self._on_kf_culled)
         self.tracker = self._build_tracker(m)
         self.local_mapper.timers = self.tracker.timers
+        self.tracker.async_map = self.async_map
         if old_tracker is not None:
             # The relative-pose log spans map spawns; frame ids stay monotonic.
             self.tracker.trajectory = old_tracker.trajectory
@@ -132,11 +162,15 @@ class SlamSystem:
                                           db=self.db)
 
     def _build_tracker(self, m):
-        return MonoTracker(self.cfg.tracker, m, local_mapper=self.local_mapper,
-                           loop_closer=self._on_keyframe_for_loops,
-                           relocalizer=self._relocalize,
-                           on_tracking_lost=self._on_tracking_lost,
-                           ransac_sets_fn=self.ransac_sets_fn)
+        kw = dict(local_mapper=self.local_mapper,
+                  loop_closer=self._on_keyframe_for_loops,
+                  relocalizer=self._relocalize,
+                  on_tracking_lost=self._on_tracking_lost,
+                  ransac_sets_fn=self.ransac_sets_fn)
+        if self.cfg.sensor == "mono":
+            return MonoTracker(self.cfg.tracker, m, **kw)
+        return StereoTracker(self.cfg.tracker, m, baseline=self.cfg.baseline,
+                             depth_factor=self.cfg.depth_factor, **kw)
 
     # ------------------------------------------------------------------
     def _ensure_vocabulary(self):
@@ -149,19 +183,25 @@ class SlamSystem:
         if self.cfg.vocabulary_path is not None:
             # Pre-built vocabulary, shared across every map of the session.
             p = str(self.cfg.vocabulary_path)
-            self.voc = (load_dbow2_text(p, device=self.device)
-                        if p.endswith(".txt")
-                        else load_vocabulary(p, device=self.device))
+            voc = (load_dbow2_text(p, device=self.device) if p.endswith(".txt")
+                   else load_vocabulary(p, device=self.device))
         else:
             descs = np.concatenate([m.kf_desc[k][m.kf_kp_valid[k]] for k in kfs])
-            self.voc = train_vocabulary(descs, k=self.cfg.vocab_k,
-                                        L=self.cfg.vocab_L, seed=0,
-                                        device=self.device)
-        self.db = KeyframeDatabase(self.voc)
-        self.map_dbs[m.map_id] = self.db
-        self.loop_closer = LoopCloser(cfg=self.cfg.tracker, map=m, db=self.db)
+            voc = train_vocabulary(descs, k=self.cfg.vocab_k,
+                                   L=self.cfg.vocab_L, seed=0,
+                                   device=self.device)
+        db = KeyframeDatabase(voc)
         for k in kfs:
-            self.db.add(int(k), m.kf_desc[k], m.kf_kp_valid[k])
+            db.add(int(k), m.kf_desc[k], m.kf_kp_valid[k])
+        if self.device.type == "cuda":
+            # With the background worker this runs on its stream: the
+            # vocabulary's tensors must be complete before the tracker
+            # thread can reach them through self.voc / self.db.
+            torch.cuda.current_stream(self.device).synchronize()
+        self.voc = voc
+        self.db = db
+        self.map_dbs[m.map_id] = db
+        self.loop_closer = LoopCloser(cfg=self.cfg.tracker, map=m, db=db)
 
     def _on_keyframe_for_loops(self, kf: int) -> bool:
         self._ensure_vocabulary()
@@ -297,6 +337,9 @@ class SlamSystem:
     def _on_tracking_lost(self):
         """Sustained loss: small maps reset in place, established maps are
         stored and a new one spawned (Tracking::CreateMapInAtlas)."""
+        if self.async_map is not None:
+            # The worker may still hold tasks against the outgoing map.
+            self.async_map.flush()
         m = self.atlas.active_map
         if m.n_kf < self.cfg.min_kf_spawn:
             self.atlas.maps.remove(m)
@@ -329,16 +372,62 @@ class SlamSystem:
                 return
             self._on_tracking_lost()
 
+    def _drain_async_events(self):
+        """Apply the worker's effects on the tracker thread at a frame
+        boundary; a crashed worker task raises here, within one frame."""
+        if self.async_map is None:
+            return
+        errs = self.async_map.pop_errors()
+        if errs:
+            raise errs[0]
+        for kind, _payload in self.async_map.drain_events():
+            if kind != "loop":
+                raise RuntimeError(f"unexpected mapping event {kind!r}")
+            # Poses moved under the corrected essential graph; the stale
+            # velocity model would fight the corrected map.
+            self.tracker.velocity = None
+
+    def _timed(self, process, timestamp, *args):
+        """One frame through the tracker: the worker's events first, the
+        timestamp guard, then the frame's wall time, which ends when this
+        thread's stream is done (not the worker's)."""
+        self._drain_async_events()
+        self._check_timestamp(timestamp)
+        t0 = time.perf_counter()
+        frame = process(*args, timestamp)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.timings.append(time.perf_counter() - t0)
+        return frame
+
     def track_monocular(self, img, timestamp):
         """System::TrackMonocular: one image (numpy uint8/float32 array or a
         tensor) at `timestamp` seconds.  Returns the Frame."""
-        self._check_timestamp(timestamp)
-        t0 = time.perf_counter()
-        frame = self.tracker.process(img, timestamp)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timings.append(time.perf_counter() - t0)
-        return frame
+        return self._timed(self.tracker.process, timestamp, img)
+
+    def track_stereo(self, img_left, img_right, timestamp):
+        """System::TrackStereo: a rectified left/right pair."""
+        return self._timed(self.tracker.process_stereo, timestamp, img_left,
+                           img_right)
+
+    def track_rgbd(self, img, depth_map, timestamp):
+        """System::TrackRGBD: an image and its registered metric depth map
+        (values <= 0 = no depth)."""
+        return self._timed(self.tracker.process_rgbd, timestamp, img,
+                           depth_map)
+
+    def flush(self):
+        """Wait for the background worker to drain and apply its events (a
+        no-op in synchronous mode).  Call before reading final state."""
+        if self.async_map is not None:
+            self.async_map.flush()
+            self._drain_async_events()
+
+    def shutdown(self):
+        """System::Shutdown: drain and stop the background worker."""
+        if self.async_map is not None:
+            self.flush()
+            self.async_map.shutdown()
 
     def activate_localization_mode(self):
         """Track against the frozen map without mutating it

@@ -5,9 +5,12 @@ Counterpart of ``orb_slam3_study_kr_tpu/pipeline/tracking.py``
 stages, mirroring the state machine of ORB-SLAM3's Tracking — monocular
 initialization, the whole-frame fused slice (flow anchor + motion model +
 local-map rounds), the split fallback (motion model, reference keyframe,
-local map), the keyframe decision, synchronous local mapping and the
-loop-closing callback per keyframe, and localization-only mode.  Heavy
-compute runs on ``cfg.device``; this file moves indices around in numpy.
+local map), the keyframe decision, local mapping and the loop-closing
+callback per keyframe (in line, or handed to the background worker of
+``pipeline/async_mapping.py``), and localization-only mode.  With
+``cfg.bf > 0`` (stereo and RGB-D, ``pipeline/stereo_tracking.py``) every
+pose solve gets the frame's right coordinates.  Heavy compute runs on
+``cfg.device``; this file moves indices around in numpy.
 """
 
 import enum
@@ -41,7 +44,6 @@ class TrackState(enum.Enum):
 # value that keeps them off (ROADMAP.md names the item that ports each).
 _NOT_PORTED = {
     "camera_model": ("pinhole", "fisheye (ROADMAP item 16)"),
-    "bf": (0.0, "stereo/RGB-D (ROADMAP item 14)"),
     "klt_refine": (True, "the KLT-off tracker variant (ROADMAP item 12 knobs)"),
     "fused_rounds": (True, "the unfused split rounds (ROADMAP item 12 knobs)"),
     "refkf_anchor": (False, "refkf_anchor (ROADMAP item 12 knobs)"),
@@ -72,7 +74,7 @@ class TrackerConfig:
     kf_min_gap: int = 2
     init_min_parallax: float = 1.5
     local_map_size: int = 4096
-    bf: float = 0.0
+    bf: float = 0.0              # fx * stereo baseline; 0 = mono sensor
     patch_zncc_min: float = -1.0
     # KLT match verification/refinement (ops/klt.py) with the
     # distinctiveness-gated observation write-back.
@@ -198,6 +200,7 @@ class MonoTracker:
         self.device = resolve_device(cfg.device, "TrackerConfig.device")
         self.map = slam_map
         self.local_mapper = local_mapper
+        self.async_map = None   # AsyncMapping worker (set by SlamSystem)
         self.loop_closer = loop_closer          # callable(kf_id) -> bool
         self.relocalizer = relocalizer          # callable(frame) -> bool
         self.on_tracking_lost = on_tracking_lost
@@ -257,9 +260,11 @@ class MonoTracker:
         return frame
 
     def _sync(self):
-        """End a timed stage at device completion (kernels run async)."""
+        """End a timed stage at device completion (kernels run async).  Only
+        this thread's stream: with the background mapper a device-wide sync
+        would also wait for the worker's local BA."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def process(self, img, timestamp) -> Frame:
         with self.timers.stage("track/extract"):
@@ -580,10 +585,17 @@ class MonoTracker:
             move = good & (_np(distinct) >= cfg.klt_distinct_min)
             self.stats["klt_ambiguous"] = (
                 self.stats.get("klt_ambiguous", 0) + int((good & ~move).sum()))
+            uv_ref_np = _np(uv_ref)
             und = _np(cfg.undistort_px_fn(uv_ref))
-            frame.uv_raw[move] = _np(uv_ref)[move]
+            du = uv_ref_np[:, 0] - frame.uv_raw[:, 0]
+            frame.uv_raw[move] = uv_ref_np[move]
             frame.uv[move] = und[move]
             frame.invalidate_dev("uv")
+            # Stereo: the right coordinate follows the left one (the
+            # disparity was measured at the pre-refinement position).
+            if frame.u_r is not None:
+                has_r = move & (frame.u_r >= 0)
+                frame.u_r[has_r] += du[has_r]
             if frame.patch is not None:
                 frame.patch[move] = np.clip(_np(win), 0, 255).astype(np.uint8)[move]
         out = matched_lm.copy()
@@ -591,6 +603,12 @@ class MonoTracker:
         self.stats["klt_reject"] = (
             self.stats.get("klt_reject", 0) + int((mask & ~good).sum()))
         return out
+
+    def _stereo_kw(self, frame):
+        """The stereo row's inputs for a frame with right coordinates."""
+        if self.cfg.bf > 0 and frame.u_r is not None:
+            return dict(ur_obs=self._t(frame.u_r), bf=self.cfg.bf)
+        return {}
 
     def _optimize_frame_pose(self, frame, R0, t0):
         cfg, m = self.cfg, self.map
@@ -604,7 +622,7 @@ class MonoTracker:
             cfg.project_fn, cfg.project_jac_fn,
             self._t(R0, torch.float32), self._t(t0, torch.float32),
             self._t(X), frame.dev("uv"), frame.dev("level"),
-            self._t(mask.astype(np.float32)))
+            self._t(mask.astype(np.float32)), **self._stereo_kw(frame))
         inl = _np(inl) & mask
         frame.R_cw = _np(R).copy()
         frame.t_cw = _np(t).copy()
@@ -885,9 +903,9 @@ class MonoTracker:
                 R_last=(self._t(lf.R_cw, torch.float32)
                         if flow is not None else None),
                 t_last=(self._t(lf.t_cw, torch.float32)
-                        if flow is not None else None))
-        (R, t, kp_lm, inl, visible, n_mm, (uv_dev, uv_raw_dev, moved_dev),
-         n_flow) = out
+                        if flow is not None else None),
+                **self._stereo_kw(frame))
+        (R, t, kp_lm, inl, visible, n_mm, moves, n_flow) = out
         if int(n_mm) < cfg.min_track_matches:
             self.stats["fused_bail_mm"] = self.stats.get("fused_bail_mm", 0) + 1
             return None
@@ -897,7 +915,7 @@ class MonoTracker:
         frame.R_cw = _np(R).copy()
         frame.t_cw = _np(t).copy()
         frame.kp_lm = _np(kp_lm).copy()
-        self._install_moves(frame, uv_dev, uv_raw_dev, moved_dev)
+        self._install_moves(frame, *moves)
         inl = _np(inl)
         visible = _np(visible)
         with m.lock:
@@ -908,13 +926,16 @@ class MonoTracker:
         return int(inl.sum())
 
     @staticmethod
-    def _install_moves(frame, uv_dev, uv_raw_dev, moved_dev):
+    def _install_moves(frame, uv_dev, uv_raw_dev, ur_dev, moved_dev):
         """KLT-moved observations: the program returns the full updated
-        coordinate arrays; install them as host copies and device mirrors."""
+        coordinate arrays; install them as host copies and device mirrors
+        (and a stereo frame's shifted right coordinates)."""
         if bool(moved_dev.any()):
             frame.fill_host(uv=_np(uv_dev).copy(), uv_raw=_np(uv_raw_dev).copy())
             frame.set_dev("uv", uv_dev)
             frame.set_dev("uv_raw", uv_raw_dev)
+            if frame.u_r is not None and ur_dev is not None:
+                frame.u_r[:] = _np(ur_dev)
 
     def _exec_fused_rounds(self, frame, block, blk_mask, R0, t0, th,
                            level_slack, n_rounds=1, flow=None):
@@ -942,16 +963,16 @@ class MonoTracker:
                 klt_max_shift=cfg.klt_max_shift,
                 klt_distinct_min=cfg.klt_distinct_min,
                 n_rounds=n_rounds, move_obs=cfg.klt_move_obs,
-                flow=flow, flow_radius=cfg.flow_anchor_radius)
-        (R, t, kp_lm, inl, visible, (uv_dev, uv_raw_dev, moved_dev),
-         n_flow) = out
+                flow=flow, flow_radius=cfg.flow_anchor_radius,
+                **self._stereo_kw(frame))
+        (R, t, kp_lm, inl, visible, moves, n_flow) = out
         if flow is not None:
             self.stats["flow_anchor_matches"] = (
                 self.stats.get("flow_anchor_matches", 0) + int(n_flow))
         frame.R_cw = _np(R).copy()
         frame.t_cw = _np(t).copy()
         frame.kp_lm = _np(kp_lm).copy()
-        self._install_moves(frame, uv_dev, uv_raw_dev, moved_dev)
+        self._install_moves(frame, *moves)
         return int(_np(inl).sum()), _np(visible)
 
     def _track_local_map_fused(self, frame: Frame, cand) -> int:
@@ -1004,6 +1025,11 @@ class MonoTracker:
             n_ref = int((obs[ref_lms] >= min_obs).sum())
         c1a = frames_since >= cfg.fps
         c2 = (n_inliers < cfg.kf_ref_ratio * max(n_ref, 1)) and n_inliers > 15
+        # With the background mapper busy, defer non-urgent keyframes (the
+        # reference's bLocalMappingIdle gate): only the max-interval
+        # condition forces an insertion.
+        if self.async_map is not None and self.async_map.busy and not c1a:
+            return False
         return c1a or (frames_since >= cfg.kf_min_gap and c2)
 
     def _create_keyframe(self, frame: Frame):
@@ -1019,6 +1045,17 @@ class MonoTracker:
             self.stats["n_kf"] += 1
             kp, lms = frame.bound_obs()
             m.update_landmark_stats(lms)
+        if self.async_map is not None:
+            # Hand-off (LocalMapping::InsertKeyFrame): mapping and the loop
+            # cascade run on the worker and tracking continues at once.
+            # Pose refinements land in the map arrays; loop effects on the
+            # tracker arrive as events (SlamSystem._drain_async_events).
+            if self.local_mapper is not None:
+                self.local_mapper.note_new_keyframe(kf)
+                self.async_map.submit(functools.partial(
+                    self._background_kf_task, self.local_mapper,
+                    self.loop_closer, m, kf))
+            return
         if self.local_mapper is not None:
             with self.timers.stage("mapping/keyframe"):
                 self.local_mapper.note_new_keyframe(kf)
@@ -1035,6 +1072,17 @@ class MonoTracker:
                 frame.R_cw = m.kf_R[kf].copy()
                 frame.t_cw = m.kf_t[kf].copy()
                 self.velocity = None
+
+    def _background_kf_task(self, mapper, loop_cb, m, kf):
+        """One keyframe's mapping and loop work, run on the worker thread
+        (the loop cascade takes the map lock only for its mutations)."""
+        with self.timers.stage("mapping/keyframe_bg"):
+            mapper.run_once()
+        if loop_cb is not None and m is self.map:
+            with self.timers.stage("loop/detect_correct_bg"):
+                hit = loop_cb(kf)
+            if hit:
+                self.async_map.post_event("loop", kf)
 
     # ------------------------------------------------------------------
     def _record_trajectory(self, frame: Frame):

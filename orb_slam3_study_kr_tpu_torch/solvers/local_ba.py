@@ -89,9 +89,11 @@ def bundle_adjust(project_fn, project_jac_fn,
                   obs_pose, obs_lm, obs_uv, obs_level, obs_mask,
                   n_iters: int = 10, use_huber: bool = True,
                   init_lambda: float = 1e-4, assembly: str = "dense",
-                  n_cg: int = 60):
+                  n_cg: int = 60, obs_ur=None, bf=None):
     """Returns (R_cw, t_cw, X, final_chi2 (O,), final_cost).  ``assembly``
-    is "dense" or "pcg" (see the module docstring)."""
+    is "dense" or "pcg" (see the module docstring).  With obs_ur (O,) and
+    bf = fx * baseline, observations with obs_ur >= 0 get the stereo third
+    residual row and the 3-dof chi2/Huber gate 7.815."""
     if assembly not in ("dense", "pcg"):
         raise ValueError(f"bundle_adjust: unknown assembly {assembly!r}")
     K = R_cw.shape[0]
@@ -101,8 +103,13 @@ def bundle_adjust(project_fn, project_jac_fn,
     obs_pose = obs_pose.long()
     obs_lm = obs_lm.long()
     inv_sigma2 = robust.octave_inv_sigma2(obs_level)
-    chi2_gate = robust.CHI2_MONO
-    huber_delta = torch.sqrt(torch.tensor(chi2_gate, dtype=dt, device=dev))
+    if obs_ur is None:
+        chi2_gate = torch.tensor(robust.CHI2_MONO, dtype=dt, device=dev)
+    else:
+        chi2_gate = torch.where(
+            obs_ur >= 0, torch.tensor(robust.CHI2_STEREO, dtype=dt, device=dev),
+            torch.tensor(robust.CHI2_MONO, dtype=dt, device=dev))
+    huber_delta = torch.sqrt(chi2_gate)
     eye3 = torch.eye(3, dtype=dt, device=dev)
     eye6 = torch.eye(6, dtype=dt, device=dev)
     cell = obs_pose * M + obs_lm
@@ -115,7 +122,7 @@ def bundle_adjust(project_fn, project_jac_fn,
     def compute(R_all, t_all, X_all):
         r, J_pose, J_point, p = residual_and_jacobians(
             project_jac_fn, project_fn, R_all[obs_pose], t_all[obs_pose],
-            X_all[obs_lm], obs_uv)
+            X_all[obs_lm], obs_uv, ur_obs=obs_ur, bf=bf)
         chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
         valid = obs_mask * lm_mask[obs_lm] * (p[:, 2] > 1e-3)
         w = inv_sigma2 * valid

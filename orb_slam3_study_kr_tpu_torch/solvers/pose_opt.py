@@ -3,8 +3,9 @@
 Counterpart of ``orb_slam3_study_kr_tpu/solvers/pose_opt.py``
 (Optimizer::PoseOptimization): 4 rounds x 10 damped Gauss-Newton steps on
 one SE3 (a 6x6 solve) over all matched landmarks, outliers re-classified at
-chi2 5.991 between rounds, Huber IRLS on rounds 0-1.  A step is kept only
-when it lowers the robust-weighted cost; the choice stays on the device.
+chi2 5.991 (mono) or 7.815 (stereo rows) between rounds, Huber IRLS on
+rounds 0-1.  A step is kept only when it lowers the robust-weighted cost;
+the choice stays on the device.
 """
 
 import torch
@@ -18,20 +19,29 @@ ITERS_PER_ROUND = 10
 
 
 def optimize_pose(project_fn, project_jac_fn, R_cw, t_cw, X, uv_obs, level,
-                  mask, damping=1e-3):
+                  mask, damping=1e-3, ur_obs=None, bf=None):
     """Optimize one camera pose against fixed landmarks.
 
     R_cw (3, 3), t_cw (3); X (N, 3); uv_obs (N, 2); level (N,); mask (N,)
-    float weights (1.0 for real observations).
+    float weights (1.0 for real observations).  ur_obs (N,) with bf =
+    fx * baseline adds the stereo row on observations with ur_obs >= 0,
+    gated at chi2 7.815 with Huber delta sqrt(7.815) there.
     Returns (R, t, inlier_mask (N,) bool, n_inliers)."""
     inv_sigma2 = robust.octave_inv_sigma2(level)
-    chi2_gate = robust.CHI2_MONO
-    huber_delta = robust.HUBER_MONO
+    if ur_obs is None:
+        chi2_gate = robust.CHI2_MONO
+        huber_delta = robust.HUBER_MONO
+    else:
+        chi2_gate = torch.where(
+            ur_obs >= 0,
+            torch.tensor(robust.CHI2_STEREO, dtype=R_cw.dtype, device=R_cw.device),
+            torch.tensor(robust.CHI2_MONO, dtype=R_cw.dtype, device=R_cw.device))
+        huber_delta = torch.sqrt(chi2_gate)
     eye6 = torch.eye(6, dtype=R_cw.dtype, device=R_cw.device)
 
     def residuals(R, t):
         return residual_and_jacobians(project_jac_fn, project_fn, R[None],
-                                      t[None], X, uv_obs)
+                                      t[None], X, uv_obs, ur_obs=ur_obs, bf=bf)
 
     R, t = R_cw, t_cw
     inlier = torch.ones_like(mask)

@@ -11,10 +11,13 @@ import torch
 from orb_slam3_study_kr_tpu_torch import convert
 from orb_slam3_study_kr_tpu_torch.bow import KeyframeDatabase
 from orb_slam3_study_kr_tpu_torch.bow import vocabulary as voc_mod
+from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
+from orb_slam3_study_kr_tpu_torch.pipeline.async_mapping import AsyncMapping
 from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
 from orb_slam3_study_kr_tpu_torch.pipeline.global_ba import global_bundle_adjustment
 from orb_slam3_study_kr_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam3_study_kr_tpu_torch.pipeline.loop_closing import LoopCloser
+from orb_slam3_study_kr_tpu_torch.pipeline.stereo_tracking import StereoTracker
 from orb_slam3_study_kr_tpu_torch.pipeline.tracking import MonoTracker, TrackerConfig
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import MapState
 
@@ -39,6 +42,19 @@ def _saved(tmp_path):
     return path
 
 
+def _stopped_worker(device):
+    w = AsyncMapping(device=device)
+    w.shutdown()
+    return w
+
+
+def _session(device, **kw):
+    """A SlamSystem of the given sensor or mode, its worker stopped."""
+    slam = SlamSystem(SystemConfig(device=device, **kw))
+    slam.shutdown()
+    return slam
+
+
 def _dbow2(tmp_path):
     path = tmp_path / "voc.txt"
     with open(path, "w") as f:
@@ -52,6 +68,12 @@ BUILDS = {
     "Frame": lambda cfg, tmp: Frame(frame_id=0, timestamp=0.0, n_kp=4,
                                     device=cfg.device),
     "MonoTracker": lambda cfg, tmp: MonoTracker(cfg, _map()),
+    "StereoTracker": lambda cfg, tmp: StereoTracker(cfg, _map()),
+    "AsyncMapping": lambda cfg, tmp: _stopped_worker(cfg.device),
+    "SlamSystem(stereo)": lambda cfg, tmp: _session(cfg.device, sensor="stereo"),
+    "SlamSystem(rgbd)": lambda cfg, tmp: _session(cfg.device, sensor="rgbd"),
+    "SlamSystem(async)": lambda cfg, tmp: _session(cfg.device,
+                                                  async_mapping=True),
     "LocalMapper": lambda cfg, tmp: LocalMapper(cfg=cfg, map=_map()),
     "LoopCloser": lambda cfg, tmp: LoopCloser(cfg=cfg, map=_map(), db=_db()),
     "global_bundle_adjustment": lambda cfg, tmp: global_bundle_adjustment(
@@ -74,6 +96,7 @@ BUILDS = {
 def test_tracker_config_defaults_to_the_card():
     assert TrackerConfig().device == "cuda"
     assert inspect.signature(Frame).parameters["device"].default == "cuda"
+    assert inspect.signature(AsyncMapping).parameters["device"].default == "cuda"
     for fn in (voc_mod.train_vocabulary, voc_mod.load_vocabulary,
                voc_mod.load_dbow2_text, voc_mod.vocabulary_from_arrays,
                convert.vocabulary_from_numpy):

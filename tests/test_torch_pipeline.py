@@ -138,9 +138,10 @@ def test_fused_track_frame_from_carried_state(reference):
 
 
 def _flat(x):
+    """The tensors of a nested output (a mono frame's ur slot is None)."""
     if isinstance(x, (tuple, list)):
         return [y for v in x for y in _flat(v)]
-    return [x]
+    return [] if x is None else [x]
 
 
 def test_fused_frame_packs_descriptors_once(reference, monkeypatch):
@@ -304,6 +305,10 @@ def test_port_imports_no_jax():
             "import orb_slam3_study_kr_tpu_torch.solvers.pnp\n"
             "import orb_slam3_study_kr_tpu_torch.solvers.sim3_solver\n"
             "import orb_slam3_study_kr_tpu_torch.solvers.pose_graph\n"
+            "import orb_slam3_study_kr_tpu_torch.ops.stereo\n"
+            "import orb_slam3_study_kr_tpu_torch.pipeline.stereo_tracking\n"
+            "import orb_slam3_study_kr_tpu_torch.pipeline.async_mapping\n"
+            "import orb_slam3_study_kr_tpu_torch.io.rectify\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('orb_slam3_study_kr_tpu.'))\n"
             "assert not bad, bad\n"
@@ -326,14 +331,18 @@ def test_cuda_device_without_cuda_raises():
 
 @pytest.mark.parametrize("kw", [
     dict(enable_loop_closing=True, ba_devices=2),
-    dict(async_mapping=True),
-    dict(sensor="stereo"),
+    dict(sensor="stereo-inertial"),
+    dict(sensor="rgbd-inertial"),
+    dict(sensor="stereo", tracker=TrackerConfig(camera_model="kb8")),
     dict(sensor="mono-inertial"),
     dict(tracker=TrackerConfig(camera_model="kb8")),
-], ids=["loop_closing", "async_mapping", "stereo", "mono_inertial", "kb8"])
+], ids=["loop_closing", "stereo_inertial", "rgbd_inertial", "kb8_stereo",
+        "mono_inertial", "kb8"])
 def test_unported_routes_raise(kw):
-    """Loop closing itself is ported (the default config no longer
-    raises); its multi-device global BA is not."""
+    """Loop closing, rectified stereo, RGB-D and the async worker are
+    ported; the multi-device global BA (item 19), the inertial sensors
+    (item 15) and the fisheye model and rig (item 16) raise, naming
+    their ROADMAP item."""
     cfg = dict(enable_loop_closing=False, device="cpu")
     cfg.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -379,3 +388,31 @@ def test_config_conversion_from_reference_fields():
     ts = convert.system_config_from_dict(dataclasses.asdict(js), device="cpu")
     assert ts.max_lm == 5000 and not ts.enable_loop_closing
     assert ts.tracker.n_features == 800 and ts.device == "cpu"
+    js = JSystemConfig(sensor="stereo", baseline=0.2, depth_factor=35.0,
+                       async_mapping=True, async_max_pending=2)
+    ts = convert.system_config_from_dict(dataclasses.asdict(js), device="cpu")
+    assert (ts.sensor, ts.baseline, ts.depth_factor) == ("stereo", 0.2, 35.0)
+    assert ts.async_mapping and ts.async_max_pending == 2
+
+
+def test_config_conversion_reference_only_fields():
+    """The table of reference fields the port lacks holds the reference's
+    own defaults and, with the port's fields, covers every reference field.
+    Such a field converts at its default and raises with any other value,
+    as does a key neither config has."""
+    for jcls, tcls in ((JTrackerConfig, TrackerConfig),
+                       (JSystemConfig, SystemConfig)):
+        table = convert.REFERENCE_ONLY[tcls.__name__]
+        port = {f.name for f in dataclasses.fields(tcls)}
+        ref = {f.name: getattr(jcls(), f.name) for f in dataclasses.fields(jcls)}
+        assert set(ref) - port == set(table), tcls.__name__
+        for k, v in table.items():
+            assert v == ref[k], k
+    with pytest.raises(ValueError, match="imu_freq"):
+        convert.system_config_from_dict(
+            dataclasses.asdict(JSystemConfig(imu_freq=100.0)), device="cpu")
+    with pytest.raises(ValueError, match="fov_max_deg"):
+        convert.tracker_config_from_dict(
+            dataclasses.asdict(JTrackerConfig(fov_max_deg=60.0)))
+    with pytest.raises(ValueError, match="no_such_field"):
+        convert.tracker_config_from_dict({"fps": 10, "no_such_field": 1})
