@@ -37,11 +37,23 @@ the int8 tensor-core rate of 1979 T/s).
      baseline 0.11, loop closing on) through SlamSystem.track_stereo, after
      match_stereo on the first pair on the card against the same call on
      the CPU;
- 11. RGB-D: the 20-frame lateral session (seed 7) through track_rgbd;
- 12. the background mapping worker: the 40-frame monocular session of
-     seed 5 with SystemConfig(async_mapping=True), flushed at the end.
-Phases 6-12 are the main paths: each resets the kernels' launch counters
-just before it and reads them just after; the kernels line sums them.  Any
+ 11. RGB-D: the first 12 frames of the 20-frame lateral session (seed 7)
+     through track_rgbd;
+ 12. the background mapping worker: the first 26 frames of the 40-frame
+     monocular session of seed 5 with SystemConfig(async_mapping=True),
+     flushed at the end;
+ 13. the Atlas, run right after phase 8 on the default session: 14 frames
+     of featureless noise (a sustained loss stores the map and spawns a
+     second one), a replay of the first 26 frames of the path (the new map
+     is recognised against the stored one, verified, one K3 launch per
+     verification, and welded back into one map by the welding BA), then
+     save_atlas, load_atlas into a fresh SlamSystem and a relocalization
+     against the loaded map.
+Phases 6-13 are the main paths: each resets the kernels' launch counters
+just before it and reads them just after; the kernels line sums them.
+Their frames are rendered by worker processes, one per path, while the
+kernels build (render_scenario), with the seeds and in the order each
+session uses them.  Any
 failure raises (non-zero exit).  Before the last two lines the script prints
 its own seconds; the line before the last is the kernels JSON; the last line
 is {"ok": true, "device": {...}}.  Imports only the port, torch and numpy.
@@ -396,20 +408,79 @@ class _Launches:
         return False
 
 
-def _lateral_session(dev, n, x_span, loop_closing):
+N_BLACK, N_REPLAY = 14, 26      # the Atlas phase's noise and replay frames
+SCENARIOS = ("loop_off", "default", "atlas", "stereo", "rgbd", "async")
+
+
+def render_scenario(name):
+    """The world, ground truth and frames of one main path, rendered from
+    its seeds in the order its session uses them, so a worker process gives
+    the images rendering in line would.  Returns dict(world, R_gt, t_gt,
+    frames), frames as the session's per-frame image arguments."""
+    import numpy as np
+    from orb_slam3_study_kr_tpu_torch.io import synthetic
+    render = synthetic.render_textured
+    if name in ("loop_off", "default", "atlas"):
+        n, x_span = (18, 0.5) if name == "loop_off" else (40, 1.0)
+        rng = np.random.default_rng(1)
+        world = synthetic.make_textured_world(rng, depth=6.0)
+        R, t = synthetic.lateral_trajectory(n, x_span=x_span, z_span=0.0,
+                                            y_amp=0.0)
+        if name == "atlas":
+            # Featureless noise (no keypoint passes FAST), then the first
+            # N_REPLAY frames of the default path rendered anew.
+            rng = np.random.default_rng(13)
+            frames = [rng.uniform(0, 8, (480, 752)).astype(np.float32)
+                      for _ in range(N_BLACK)]
+            frames += [render(world, R[i], t[i], rng=rng)
+                       for i in range(N_REPLAY)]
+        else:
+            frames = [render(world, R[i], t[i], rng=rng) for i in range(n)]
+    elif name == "stereo":
+        rng = np.random.default_rng(3)
+        world = synthetic.make_textured_world(rng, depth=6.0)
+        R, t = synthetic.lateral_trajectory(30, x_span=1.0, z_span=0.0,
+                                            y_amp=0.0)
+        frames = []
+        for i in range(30):
+            imgL = render(world, R[i], t[i], rng=rng)
+            _, t_r = synthetic.stereo_right_pose(R[i], t[i], BASELINE)
+            frames.append((imgL, render(world, R[i], t_r, rng=rng)))
+    elif name == "rgbd":
+        # The first 12 frames of test_rgbd_slam_textured's 20 (cut to hold
+        # the script's time).
+        rng = np.random.default_rng(7)
+        world = synthetic.make_textured_world(rng, depth=6.0)
+        R, t = synthetic.lateral_trajectory(20, x_span=0.7, z_span=0.0,
+                                            y_amp=0.0)
+        R, t = R[:12], t[:12]
+        frames = []
+        for i in range(12):
+            img, depth = render(world, R[i], t[i], rng=rng, return_depth=True)
+            frames.append((img, np.where(np.isfinite(depth), depth, 0.0)))
+    elif name == "async":
+        # The first 26 frames of test_async_mono_pipeline's 40 (cut to hold
+        # the script's time).
+        rng = np.random.default_rng(5)
+        world = synthetic.make_textured_world(rng)
+        R, t = synthetic.lateral_trajectory(40, x_span=1.0)
+        R, t = R[:26], t[:26]
+        frames = [(render(world, R[i], t[i], rng=rng),) for i in range(26)]
+    else:
+        raise ValueError(f"unknown scenario {name!r}")
+    return dict(world=world, R_gt=R, t_gt=t, frames=frames)
+
+
+def _lateral_session(dev, scen, loop_closing):
     import numpy as np
     import torch
     from orb_slam3_study_kr_tpu_torch.evaluation import ate_rmse
-    from orb_slam3_study_kr_tpu_torch.io import synthetic
     from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
     from orb_slam3_study_kr_tpu_torch.pipeline.tracking import (TrackerConfig,
                                                                 TrackState)
-    rng = np.random.default_rng(1)
-    world = synthetic.make_textured_world(rng, depth=6.0)
-    R_gt, t_gt = synthetic.lateral_trajectory(n, x_span=x_span, z_span=0.0,
-                                              y_amp=0.0)
-    imgs = [synthetic.render_textured(world, R_gt[i], t_gt[i], rng=rng)
-            for i in range(n)]
+    world, R_gt, t_gt, imgs = (scen[k] for k in ("world", "R_gt", "t_gt",
+                                                 "frames"))
+    n = len(imgs)
     slam = SlamSystem(SystemConfig(tracker=TrackerConfig(fps=10),
                                    enable_loop_closing=loop_closing,
                                    device=str(dev)))
@@ -445,9 +516,9 @@ def _lateral_session(dev, n, x_span, loop_closing):
         launches=counter.counts, fused_frames=fused, wall_s=wall)
 
 
-def phase_loop_off(dev):
-    n = 18
-    *_, r = _lateral_session(dev, n, 0.5, loop_closing=False)
+def phase_loop_off(dev, scen):
+    n = len(scen["frames"])
+    *_, r = _lateral_session(dev, scen, loop_closing=False)
     if not (r["n_kf"] >= 3 and r["nm"] > 10 and r["ate"] < 0.05):
         raise AssertionError(f"n_kf {r['n_kf']} nm {r['nm']} ATE {r['ate']}")
     print(f"phase loop-off path: {n} frames state OK, n_kf {r['n_kf']}, ATE "
@@ -457,9 +528,9 @@ def phase_loop_off(dev):
     return r
 
 
-def phase_default(dev):
-    n = 40
-    slam, world, R_gt, t_gt, r = _lateral_session(dev, n, 1.0, loop_closing=True)
+def phase_default(dev, scen):
+    n = len(scen["frames"])
+    slam, world, R_gt, t_gt, r = _lateral_session(dev, scen, loop_closing=True)
     if not (r["n_kf"] >= 3 and r["nm"] > 25 and r["ate"] < 0.06):
         raise AssertionError(f"n_kf {r['n_kf']} nm {r['nm']} ATE {r['ate']}")
     if slam.voc is None or slam.db is None or len(slam.db.vectors) < 5:
@@ -516,6 +587,130 @@ def phase_reloc(dev, slam, world, R_gt, t_gt):
     print(f"phase relocalization: frames 14 and 26 recovered {out}; stats "
           f"{stats}; launches {counter.counts} over {searched} candidates searched")
     return dict(frames=out, stats=stats, launches=counter.counts)
+
+
+def phase_atlas(dev, slam, scen):
+    """The default session goes on: a blackout spawns a second map, the
+    replayed path welds it back, and the Atlas is saved, loaded into a fresh
+    session and relocalized against."""
+    import tempfile
+    import numpy as np
+    import torch
+    from orb_slam3_study_kr_tpu_torch.evaluation import ate_rmse
+    from orb_slam3_study_kr_tpu_torch.io import synthetic
+    from orb_slam3_study_kr_tpu_torch.ops import orb
+    from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
+    from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
+    from orb_slam3_study_kr_tpu_torch.pipeline.tracking import (TrackerConfig,
+                                                                TrackState)
+    world, R_gt, t_gt = scen["world"], scen["R_gt"], scen["t_gt"]
+    n_first, n_black, n_replay = len(slam.timings), N_BLACK, N_REPLAY
+    noise, replay = scen["frames"][:n_black], scen["frames"][n_black:]
+    ts0 = n_first * 0.1
+    m0 = slam.atlas.active_map
+    slam.sys_stats.clear()
+    merged_at = None
+    with _Launches() as counter:
+        t0 = time.perf_counter()
+        for j, img in enumerate(noise):
+            slam.track_monocular(img, ts0 + j * 0.1)
+        n_maps_spawned = len(slam.atlas.maps)
+        for i, img in enumerate(replay):
+            slam.track_monocular(img, ts0 + (n_black + i) * 0.1)
+            if merged_at is None and len(slam.atlas.maps) == 1:
+                merged_at = i
+        torch.cuda.synchronize()
+        session_s = time.perf_counter() - t0
+        merger = dict(slam.merger.stats)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "atlas.npz")
+            t0 = time.perf_counter()
+            slam.save_atlas(path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            slam2 = SlamSystem(SystemConfig(tracker=TrackerConfig(fps=10),
+                                            device=str(dev)))
+            slam2.load_atlas(path)
+            load_s = time.perf_counter() - t0
+        img = synthetic.render_textured(world, R_gt[6], t_gt[6],
+                                        rng=np.random.default_rng(323))
+        feats = orb.extract_orb(torch.as_tensor(img, device=dev),
+                                slam.cfg.tracker.orb_config)
+        frame = Frame(frame_id=20_000, timestamp=199.0, device=dev,
+                      **{k: getattr(feats, k).cpu().numpy().copy()
+                         for k in ("uv", "level", "angle", "response", "desc",
+                                   "valid")})
+        t0 = time.perf_counter()
+        reloc_ok = slam2._relocalize(frame)
+        torch.cuda.synchronize()
+        reloc_ms = (time.perf_counter() - t0) * 1e3
+    if n_maps_spawned != 2:
+        raise AssertionError(f"the blackout left {n_maps_spawned} maps")
+    if merged_at is None or len(slam.atlas.maps) != 1:
+        raise AssertionError(f"the maps were never welded: {len(slam.atlas.maps)} "
+                             f"maps, merger {merger}")
+    m = slam.atlas.active_map
+    if m is not m0 or m.n_kf <= 0 or slam.tracker.map is not m:
+        raise AssertionError("the session is not on the stored map after the merge")
+    for a, b in zip(slam.atlas.maps, slam2.atlas.maps):
+        for f in SlamSystem.ATLAS_ARRAY_FIELDS:
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"loaded Atlas differs in {f}")
+    if slam2.state != TrackState.RECENTLY_LOST or not reloc_ok:
+        raise AssertionError(f"the loaded Atlas did not relocalize "
+                             f"({slam2.state}, {slam2.sys_stats})")
+    k1, k2, k3 = (counter.counts[k] for k in ("fast_nms_blur", "gated_nn",
+                                              "hamming_nn"))
+    n_ext = n_black + n_replay + 1
+    if k1 != n_ext:
+        raise AssertionError(f"atlas: K1 launched {k1} times, expected one per "
+                             f"extracted frame ({n_ext})")
+    fused = slam.tracker.stats.get("fused_frames", 0)
+    if fused < 1 or k2 < 4 * fused:
+        raise AssertionError(f"atlas: K2 launched {k2} times over {fused} "
+                             "fused frames")
+    searched = slam2.sys_stats.get("n_reloc_searched", 0)
+    if k3 < 1 or k3 < merger["n_attempts"] + searched:
+        raise AssertionError(f"atlas: K3 launched {k3} times over "
+                             f"{merger['n_attempts']} verifications and "
+                             f"{searched} relocalization candidates")
+    rows = slam.trajectory()
+    if not np.isfinite(rows[:, 1:]).all():
+        raise AssertionError("atlas: non-finite trajectory")
+    centers = _centers(R_gt, t_gt)
+    gt_ts = np.concatenate([np.arange(n_first) * 0.1,
+                            ts0 + (n_black + np.arange(n_replay)) * 0.1])
+    gt_xyz = np.concatenate([centers[:n_first], centers[:n_replay]])
+    ate, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4], gt_ts, gt_xyz, True)
+    if not (nm > n_first and ate < 0.25):
+        raise AssertionError(f"atlas: post-merge scaled ATE {ate} over {nm}")
+    stages = slam.tracker.timers.summary()
+    times = np.asarray(slam.timings[n_first + n_black:]) * 1e3
+    before, after = times[:merged_at], times[merged_at + 1:]
+    r = dict(
+        merged_at_replay_frame=merged_at, merger=merger,
+        merge_ms=stages["atlas/merge"]["max_ms"],
+        welding_ba_ms=stages["atlas/welding_ba"]["max_ms"],
+        verify_ms_median=stages["atlas/verify"]["median_ms"],
+        frame_ms_median_before=float(np.median(before)) if before.size else None,
+        frame_ms_median_after=float(np.median(after)) if after.size else None,
+        merge_frame_ms=float(times[merged_at]), ate_scaled=ate, nm=nm,
+        n_kf=m.n_kf, n_lm=m.n_lm, session_s=session_s, save_s=save_s,
+        load_s=load_s, reloc_ms=reloc_ms, reloc_stats=dict(slam2.sys_stats),
+        fused_frames=fused, launches=counter.counts)
+    print(f"phase Atlas path: {n_black} noise frames spawned map 2; replay "
+          f"frame {merged_at} of {n_replay} welded it into the stored map "
+          f"(merger {json.dumps(merger)}; merge {r['merge_ms']:.2f} ms with "
+          f"welding BA {r['welding_ba_ms']:.2f} ms, verify median "
+          f"{r['verify_ms_median']:.2f} ms; the merge frame "
+          f"{r['merge_frame_ms']:.2f} ms); frame medians before / after the "
+          f"merge {r['frame_ms_median_before']} / {r['frame_ms_median_after']} "
+          f"ms; post-merge scaled ATE {ate:.5f} over {nm} frames, n_kf "
+          f"{m.n_kf}; save {save_s:.2f} s, load {load_s:.2f} s, tables "
+          f"identical, relocalization against the loaded Atlas {reloc_ms:.2f} "
+          f"ms {json.dumps(r['reloc_stats'])}; launches {counter.counts} over "
+          f"{fused} fused frames")
+    return r
 
 
 # The ring world of tests/test_loop_cascade.py: cameras on a circle of
@@ -717,21 +912,10 @@ def _stereo_match_check(dev, imgL, imgR):
                 depth_max_rel_err=d_err)
 
 
-def phase_stereo(dev):
-    import numpy as np
-    from orb_slam3_study_kr_tpu_torch.io import synthetic
+def phase_stereo(dev, scen):
     from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig
-    n = 30
-    rng = np.random.default_rng(3)
-    world = synthetic.make_textured_world(rng, depth=6.0)
-    R_gt, t_gt = synthetic.lateral_trajectory(n, x_span=1.0, z_span=0.0,
-                                              y_amp=0.0)
-    pairs = []
-    for i in range(n):
-        imgL = synthetic.render_textured(world, R_gt[i], t_gt[i], rng=rng)
-        _, t_r = synthetic.stereo_right_pose(R_gt[i], t_gt[i], BASELINE)
-        pairs.append((imgL, synthetic.render_textured(world, R_gt[i], t_r,
-                                                      rng=rng)))
+    R_gt, t_gt, pairs = scen["R_gt"], scen["t_gt"], scen["frames"]
+    n = len(pairs)
     check = _stereo_match_check(dev, *pairs[0])
     _, r = _sensor_session(dev, "stereo", pairs, R_gt, t_gt, 0.1,
                            baseline=BASELINE,
@@ -756,20 +940,12 @@ def phase_stereo(dev):
     return dict(r, match_check=check)
 
 
-def phase_rgbd(dev):
-    import numpy as np
-    from orb_slam3_study_kr_tpu_torch.io import synthetic
+def phase_rgbd(dev, scen):
     from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig
-    n = 20
-    rng = np.random.default_rng(7)
-    world = synthetic.make_textured_world(rng, depth=6.0)
-    R_gt, t_gt = synthetic.lateral_trajectory(n, x_span=0.7, z_span=0.0,
-                                              y_amp=0.0)
-    frames = []
-    for i in range(n):
-        img, depth = synthetic.render_textured(world, R_gt[i], t_gt[i],
-                                               rng=rng, return_depth=True)
-        frames.append((img, np.where(np.isfinite(depth), depth, 0.0)))
+    R_gt, t_gt, frames = scen["R_gt"], scen["t_gt"], scen["frames"]
+    n = len(frames)
+    # 12 frames of test_rgbd_slam_textured's 20: its nm > 12 of 20 scales
+    # to nm > 7 of 12.
     _, r = _sensor_session(dev, "rgbd", frames, R_gt, t_gt, 0.1,
                            baseline=BASELINE,
                            tracker=TrackerConfig(fps=10, device=str(dev)))
@@ -777,7 +953,7 @@ def phase_rgbd(dev):
     if k1 != n:
         raise AssertionError(f"rgbd: K1 launched {k1} times, expected one per "
                              f"frame ({n})")
-    if not (r["nm"] > 12 and r["ate_metric"] < 0.15):
+    if not (r["nm"] > 7 and r["ate_metric"] < 0.15):
         raise AssertionError(f"rgbd: nm {r['nm']} metric ATE {r['ate_metric']}")
     print(f"phase RGB-D path: {n} frames, loop closing on, state OK, n_kf "
           f"{r['n_kf']}, metric ATE {r['ate_metric']:.5f} over {r['nm']} "
@@ -788,18 +964,16 @@ def phase_rgbd(dev):
     return r
 
 
-def phase_async(dev, sync_warm_ms):
-    import numpy as np
-    from orb_slam3_study_kr_tpu_torch.io import synthetic
-    n = 40
-    rng = np.random.default_rng(5)
-    world = synthetic.make_textured_world(rng)
-    R_gt, t_gt = synthetic.lateral_trajectory(n, x_span=1.0)
-    frames = [(synthetic.render_textured(world, R_gt[i], t_gt[i], rng=rng),)
-              for i in range(n)]
+def phase_async(dev, scen, sync_warm_ms):
+    R_gt, t_gt, frames = scen["R_gt"], scen["t_gt"], scen["frames"]
+    n = len(frames)
+    # 26 frames of test_async_mono_pipeline's 40: its nm > 25 of 40 scales
+    # to nm > 16 of 26.
     # The final state is not held: the pose sanity gate (relative to the
-    # recent steps) fires about once in this session, synchronous or not,
-    # and with the worker the frame it fires at depends on its timing.
+    # recent steps) fires once or twice in this session, synchronous or
+    # not, and with the worker the frame it fires at depends on its timing;
+    # the reference's asynchronous session ends RECENTLY_LOST too
+    # (tests/test_torch_session_records.py, one of three CPU runs).
     slam, r = _sensor_session(dev, "mono", frames, R_gt, t_gt, 0.05,
                               final_ok=False, async_mapping=True)
     worker = dict(slam.async_map.stats)
@@ -810,7 +984,7 @@ def phase_async(dev, sync_warm_ms):
     if not (worker["n_processed"] > 0 and worker["n_errors"] == 0
             and r["mapper"]["n_created"] > 0 and r["mapper"]["n_ba"] > 0):
         raise AssertionError(f"async: worker {worker} mapper {r['mapper']}")
-    if not (r["nm"] > 25 and r["ate_scaled"] < 0.4):
+    if not (r["nm"] > 16 and r["ate_scaled"] < 0.4):
         raise AssertionError(f"async: nm {r['nm']} scaled ATE {r['ate_scaled']}")
     print(f"phase async mapping path: {n} frames, final state {r['state']}, "
           f"sanity-gate rejections {slam.tracker.stats.get('sanity_fail', 0)}, "
@@ -843,27 +1017,51 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     import numpy as np
     from orb_slam3_study_kr_tpu_torch.io import synthetic
     out = {"card": phase_card()}
-    out["build"] = phase_build()
+    # The host renders a 752x480 frame in about half a second: every main
+    # path's frames are rendered by worker processes, one per path, while
+    # the kernels build; the pool is closed before anything is measured.
+    with ProcessPoolExecutor(max_workers=len(SCENARIOS), mp_context=
+                             multiprocessing.get_context("spawn")) as pool:
+        futures = {k: pool.submit(render_scenario, k) for k in SCENARIOS}
+        out["build"] = phase_build()
+        t0 = time.perf_counter()
+        scen = {k: f.result() for k, f in futures.items()}
+        out["render_wait_s"] = time.perf_counter() - t0
     rng = np.random.default_rng(1)
     world = synthetic.make_textured_world(rng, depth=6.0)
     R_gt, t_gt = synthetic.lateral_trajectory(2, x_span=0.05, z_span=0.0,
                                               y_amp=0.0)
     img_a, img_b = (synthetic.render_textured(world, R_gt[i], t_gt[i], rng=rng)
                     for i in range(2))
-    out["k1"] = phase_k1(dev, img_a)
-    out["k2"] = phase_k2(dev, img_a, img_b)
-    out["k3"] = phase_k3(dev, img_a, img_b)
-    out["loop_off"] = phase_loop_off(dev)
-    slam, world, R_gt, t_gt, out["default"] = phase_default(dev)
-    out["reloc"] = phase_reloc(dev, slam, world, R_gt, t_gt)
-    out["loop"] = phase_loop_correction(dev)
-    out["stereo"] = phase_stereo(dev)
-    out["rgbd"] = phase_rgbd(dev)
-    out["async"] = phase_async(dev, out["default"]["frame_ms_median_warm"])
-    paths = ("loop_off", "default", "reloc", "loop", "stereo", "rgbd", "async")
+    phase_s = out["phase_s"] = {}
+
+    def run(name, fn, *a):
+        t0 = time.perf_counter()
+        r = fn(*a)
+        phase_s[name] = round(time.perf_counter() - t0, 3)
+        return r
+
+    out["k1"] = run("k1", phase_k1, dev, img_a)
+    out["k2"] = run("k2", phase_k2, dev, img_a, img_b)
+    out["k3"] = run("k3", phase_k3, dev, img_a, img_b)
+    out["loop_off"] = run("loop_off", phase_loop_off, dev, scen["loop_off"])
+    slam, world, R_gt, t_gt, out["default"] = run("default", phase_default, dev,
+                                                  scen["default"])
+    out["reloc"] = run("reloc", phase_reloc, dev, slam, world, R_gt, t_gt)
+    out["atlas"] = run("atlas", phase_atlas, dev, slam, scen["atlas"])
+    del slam
+    out["loop"] = run("loop", phase_loop_correction, dev)
+    out["stereo"] = run("stereo", phase_stereo, dev, scen["stereo"])
+    out["rgbd"] = run("rgbd", phase_rgbd, dev, scen["rgbd"])
+    out["async"] = run("async", phase_async, dev, scen["async"],
+                       out["default"]["frame_ms_median_warm"])
+    paths = ("loop_off", "default", "reloc", "atlas", "loop", "stereo", "rgbd",
+             "async")
     launches = {k: sum(out[p]["launches"][k] for p in paths)
                 for k in ("fast_nms_blur", "gated_nn", "hamming_nn")}
     kernels = []
@@ -885,7 +1083,8 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(out, kernels=kernels), f, indent=1, default=str)
-    print(f"chip_smoke: {out['seconds']:.1f} s")
+    print(f"chip_smoke: {out['seconds']:.1f} s; per phase (s) {json.dumps(phase_s)}; "
+          f"waited {out['render_wait_s']:.1f} s for the frames after the build")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

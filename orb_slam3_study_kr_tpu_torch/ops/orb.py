@@ -389,7 +389,11 @@ def extract_level(img_l, quota, cfg: OrbConfig, maps=None):
     xs, ys, resp, valid = select_keypoints(s20, s7, quota, cfg.cell_size,
                                            cfg.cell_topk)
     dxm, dym = subpixel_offset_maps(s_raw)
-    return xs, ys, resp, valid, dxm[ys, xs], dym[ys, xs], blurred
+    # On a featureless level the zero-score ties can pick cells of the
+    # padding beyond the level's edge (invalid keypoints); the read clamps
+    # to the edge, as the reference's jnp gather does.
+    yc, xc = ys.clamp(0, H - 1), xs.clamp(0, W - 1)
+    return xs, ys, resp, valid, dxm[yc, xc], dym[yc, xc], blurred
 
 
 def extract_orb(img, cfg: OrbConfig, with_pyramid: bool = False):

@@ -9,7 +9,9 @@ with the reference's acceptance gates.  It runs in line on the tracker's
 thread, or on the background worker (``pipeline/async_mapping.py``).
 Numpy snapshots are taken under the map lock; device work runs outside it.
 With ``cfg.bf > 0`` local BA carries the keyframes' stereo rows and culls
-each observation at its own chi2 gate (7.815 stereo, 5.991 mono).
+each observation at its own chi2 gate (7.815 stereo, 5.991 mono).  After an
+Atlas merge ``welding_ba`` runs the same local BA over an explicit window
+spanning both sides of the seam.
 """
 
 import contextlib
@@ -351,10 +353,10 @@ class LocalMapper:
                 self.on_kf_culled(c)
 
     # ------------------------------------------------------------------
-    def _local_ba(self, kf: int):
+    def _local_ba(self, kf: int, window=None):
         m = self.map
         with m.lock:
-            prob = self._local_ba_assemble(kf)
+            prob = self._local_ba_assemble(kf, window=window)
         if prob is None:
             return
         R, t, X_new, chi2, _ = bundle_adjust(*prob["args"],
@@ -363,11 +365,34 @@ class LocalMapper:
         with m.lock:
             self._local_ba_apply(prob, _np(R), _np(t), _np(X_new), _np(chi2))
 
-    def _local_ba_assemble(self, kf: int):
+    def welding_ba(self, window_a, window_b, fix_b: bool = False):
+        """Two-map welding BA (MergeLocal's welding problem): the current
+        keyframe's neighbourhood (window_a, from the absorbed map) and the
+        target map's neighbourhood around the matched keyframe (window_b)
+        form one local BA; every other observer of their landmarks, the far
+        sides of both maps, enters as a fixed pose.  With fix_b the target
+        window is held fixed too (the inertial weld keeps the target's
+        gravity-consistent structure rigid)."""
+        window_a = np.asarray(window_a, np.int32)
+        window_b = np.asarray(window_b, np.int32)
+        window_b = window_b[~np.isin(window_b, window_a)]
+        # An observer outside the optimised window enters as a fixed pose,
+        # so holding the target side rigid is leaving it out of the window.
+        window = window_a if fix_b else np.concatenate([window_a, window_b])
+        self._local_ba(int(window_a[0]), window=window)
+        self.stats["n_welding_ba"] = self.stats.get("n_welding_ba", 0) + 1
+
+    def _local_ba_assemble(self, kf: int, window=None):
         cfg, m = self.cfg, self.map
-        neighbors, _ = m.covisibility(kf, min_shared=1)
-        window = np.concatenate([[kf], neighbors[: self.ba_window - 1]]).astype(
-            np.int32)
+        if window is None:
+            neighbors, _ = m.covisibility(kf, min_shared=1)
+            window = np.concatenate(
+                [[kf], neighbors[: self.ba_window - 1]]).astype(np.int32)
+        else:
+            window = np.asarray(window, np.int32)
+            window = window[m.kf_valid[window]]
+            if window.size == 0:
+                return None
         lms = np.unique(m.kf_kp_lm[window])
         lms = lms[(lms != NO_LM) & m.lm_valid[np.maximum(lms, 0)]]
         if lms.size < 20:

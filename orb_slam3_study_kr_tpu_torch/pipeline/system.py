@@ -6,7 +6,10 @@ routes frames through ``track_monocular``, ``track_stereo`` or
 ``track_rgbd``, bootstraps the vocabulary and the keyframe database, runs
 loop closing per keyframe, relocalizes lost frames by BoW + RANSAC PnP with
 the widening re-search cascade, handles sustained tracking loss (reset or
-new map) and the timestamp-jump guard, and saves trajectories.  With
+new map) and the timestamp-jump guard, welds the active map into a stored
+map it recognises (``pipeline/map_merging.py`` and the welding BA), saves
+and loads the Atlas (``save_atlas`` / ``load_atlas``, the reference's npz
+layout) and saves trajectories.  With
 ``async_mapping=True`` mapping and loop closing run on a background worker
 (``pipeline/async_mapping.py``) whose events the tracker thread applies at
 the next frame boundary; ``flush()`` waits for it and ``shutdown()`` stops
@@ -15,7 +18,10 @@ raises when no card is present instead of running on the CPU.
 
 The relocalization PnP draws come from ``uniforms_fn(iters, n)`` when given
 (tests inject the reference's jax.random stream), else from a
-torch.Generator seeded 99, the reference's session PRNGKey.
+torch.Generator seeded 99, the reference's session PRNGKey.  The loop
+closer's and the map merger's Sim3 RANSAC draws come from their own
+``uniforms_fn`` (``loop_uniforms_fn``, ``merge_uniforms_fn``) or their own
+seeded generators.
 """
 
 import dataclasses
@@ -27,20 +33,26 @@ import torch
 
 from orb_slam3_study_kr_tpu_torch.bow import (KeyframeDatabase, load_dbow2_text,
                                               load_vocabulary, train_vocabulary)
+from orb_slam3_study_kr_tpu_torch.bow.vocabulary import (vocabulary_arrays,
+                                                         vocabulary_checksum,
+                                                         vocabulary_from_arrays)
 from orb_slam3_study_kr_tpu_torch.ops.track_match import match_by_descriptor
 from orb_slam3_study_kr_tpu_torch.pipeline.async_mapping import AsyncMapping
+from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
 from orb_slam3_study_kr_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam3_study_kr_tpu_torch.pipeline.loop_closing import LoopCloser
+from orb_slam3_study_kr_tpu_torch.pipeline.map_merging import MapMerger
 from orb_slam3_study_kr_tpu_torch.pipeline.stereo_tracking import StereoTracker
 from orb_slam3_study_kr_tpu_torch.pipeline.tracking import (MonoTracker,
                                                             TrackerConfig,
                                                             TrackState)
-from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM, Atlas
+from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM, Atlas, MapState
 from orb_slam3_study_kr_tpu_torch.solvers.pnp import ransac_pnp
 from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
 PNP_ITERS = 256
 SENSORS = ("mono", "stereo", "rgbd")
+WELD_WINDOW = 25      # keyframes per side of the welding BA (numTemporalKFs)
 
 
 @dataclass
@@ -107,7 +119,8 @@ class SlamSystem:
     """SLAM session (System::TrackMonocular path)."""
 
     def __init__(self, cfg: SystemConfig = None, ransac_sets_fn=None,
-                 uniforms_fn=None):
+                 uniforms_fn=None, loop_uniforms_fn=None,
+                 merge_uniforms_fn=None):
         self.cfg = cfg or SystemConfig()
         self.cfg.check_supported()
         self.device = resolve_device(self.cfg.device, "SystemConfig.device")
@@ -119,12 +132,15 @@ class SlamSystem:
                                                device=str(self.device))
         self.ransac_sets_fn = ransac_sets_fn
         self.uniforms_fn = uniforms_fn
+        self.loop_uniforms_fn = loop_uniforms_fn
         self._gen = torch.Generator(device=self.device).manual_seed(99)
         self.atlas = Atlas()
         self.voc = None
         self.db = None
         self.loop_closer = None
         self.map_dbs = {}        # map_id -> KeyframeDatabase
+        self.merger = MapMerger(cfg=self.cfg.tracker,
+                                uniforms_fn=merge_uniforms_fn)
         self.timings = []
         self.sys_stats = {}
         self.async_map = None
@@ -158,8 +174,11 @@ class SlamSystem:
             # is kept for merge detection.
             self.db = KeyframeDatabase(self.voc)
             self.map_dbs[m.map_id] = self.db
-            self.loop_closer = LoopCloser(cfg=self.cfg.tracker, map=m,
-                                          db=self.db)
+            self.loop_closer = self._loop_closer(m, self.db)
+
+    def _loop_closer(self, m, db):
+        return LoopCloser(cfg=self.cfg.tracker, map=m, db=db,
+                          uniforms_fn=self.loop_uniforms_fn)
 
     def _build_tracker(self, m):
         kw = dict(local_mapper=self.local_mapper,
@@ -201,7 +220,7 @@ class SlamSystem:
         self.voc = voc
         self.db = db
         self.map_dbs[m.map_id] = db
-        self.loop_closer = LoopCloser(cfg=self.cfg.tracker, map=m, db=db)
+        self.loop_closer = self._loop_closer(m, db)
 
     def _on_keyframe_for_loops(self, kf: int) -> bool:
         self._ensure_vocabulary()
@@ -213,19 +232,112 @@ class SlamSystem:
         return hit
 
     def _try_merge(self, kf: int) -> bool:
-        """Place recognition against stored maps (LoopClosing::MergeLocal)
-        is not ported.  A stored map with a recognition index is where the
-        reference would search for a merge, so that raises; stored maps
-        without one (built before the vocabulary existed, or empty) give
-        nothing to merge, as in the reference."""
+        """Place recognition of keyframe kf of the active map against every
+        stored map with a recognition index; a verified hit welds the active
+        map into the stored one (LoopClosing::MergeLocal / MergeLocal2).
+        With the background worker the verified merge is posted as an event
+        and applied on the tracker thread (_drain_async_events)."""
         mA = self.atlas.active_map
+        fix_scale = self.cfg.sensor != "mono"
+        stage = self.tracker.timers.stage
         for mB in self.atlas.maps:
-            if mB is mA or self.map_dbs.get(mB.map_id) is None or mB.n_kf == 0:
+            if mB is mA:
                 continue
-            raise NotImplementedError(
-                "map merging against a stored map (pipeline/map_merging.py) "
-                "is not ported yet (ROADMAP item 17)")
+            db = self.map_dbs.get(mB.map_id)
+            if db is None or mB.n_kf == 0:
+                continue
+            cands = db.detect_relocalization_candidates(
+                mA.kf_desc[kf], mA.kf_kp_valid[kf], n_best=3)
+            for cand in cands:
+                with stage("atlas/verify"):
+                    sim3 = self.merger.verify(mA, kf, mB, int(cand),
+                                              fix_scale=fix_scale)
+                if sim3 is None:
+                    continue
+                if self.async_map is not None:
+                    self.async_map.post_event("merge",
+                                              (mA, kf, mB, int(cand), sim3))
+                    return True
+                with stage("atlas/merge"):
+                    self._apply_merge(mA, self.merger.merge(mA, kf, mB, int(cand),
+                                                            sim3))
+                return True
         return False
+
+    def _apply_merge(self, old_map, res):
+        """Move the session onto the merged map: drop the absorbed map,
+        rebind the pipeline stages, remap the tracker's frames, scale the
+        kinematics by sigma, rewrite the trajectory rows and run the
+        welding BA."""
+        mB = res.target_map
+        tr = self.tracker
+        self.atlas.maps.remove(old_map)
+        self.atlas.active = self.atlas.maps.index(mB)
+        self.map_dbs.pop(old_map.map_id, None)
+
+        # The target map's recognition index gains the transferred keyframes.
+        self.db = self.map_dbs.get(mB.map_id)
+        if self.db is not None:
+            for j in res.kf_map.values():
+                self.db.add(int(j), mB.kf_desc[j], mB.kf_kp_valid[j])
+            self.loop_closer = self._loop_closer(mB, self.db)
+
+        # The stages follow the new map.  The tracker's cached candidate
+        # block is keyed on its map and rebuilt for map B.
+        self.local_mapper.map = mB
+        tr.map = mB
+
+        def remap_lm(arr):
+            ok = arr != NO_LM
+            out = arr.copy()
+            out[ok] = res.lm_map[np.clip(arr[ok], 0, old_map.max_lm - 1)]
+            return out.astype(np.int32)
+
+        # As in the reference, a frame's rel_ref (an id of map A) is left as
+        # it is: _update_last_frame may resolve it in map B (ROADMAP §3).
+        for f in (tr.last_frame, tr.init_ref):
+            if f is not None and f.kp_lm is not None:
+                f.kp_lm = remap_lm(f.kp_lm)
+                if f.R_cw is not None:
+                    f.R_cw = f.R_cw @ res.R_BA.T
+                    f.t_cw = (res.sigma * f.t_cw - f.R_cw @ res.t_BA).astype(
+                        np.float32)
+                f.ref_kf = res.kf_map.get(f.ref_kf, -1)
+        tr.ref_kf = res.kf_map.get(tr.ref_kf, max(res.kf_map.values()))
+        if tr.velocity is not None:
+            Rv, tv = tr.velocity
+            tr.velocity = (Rv, (res.sigma * tv).astype(np.float32))
+        tr._speed_hist = [v * res.sigma for v in tr._speed_hist]
+
+        # The absorbed map's rows replay against the target map under the
+        # merge transform: relative rotations are invariant, relative
+        # translations scale by sigma.  Culled references climb their
+        # redirect chain in the old map first (kf_map has live keyframes).
+        rows = []
+        for (ts, ref, Rrel, trel, state, ok, m) in tr.trajectory:
+            if m is old_map:
+                ref, Rrel, trel = old_map.resolve_kf(int(ref), Rrel, trel)
+                if ref < 0:
+                    continue
+                rows.append((ts, res.kf_map.get(int(ref), 0), Rrel,
+                             (res.sigma * trel).astype(np.float32), state, ok,
+                             mB))
+            else:
+                rows.append((ts, ref, Rrel, trel, state, ok, m))
+        tr.trajectory = rows
+
+        # Welding BA (MergeLocal's welding window): the re-entry keyframe's
+        # neighbourhood and the matched keyframe's, every far-side observer
+        # fixed.  The inertial weld (the VI seam solve, then fix_b=True)
+        # waits for the inertial sensors (ROADMAP item 15); check_supported
+        # refuses them, so the target side is always optimised here.
+        kf_new = tr.ref_kf
+        nb_a, _ = mB.covisibility(kf_new, min_shared=1)
+        window_a = np.concatenate([[kf_new], nb_a[: WELD_WINDOW - 1]])
+        nb_b, _ = mB.covisibility(int(res.target_kf), min_shared=1)
+        window_b = np.concatenate([[res.target_kf], nb_b[: WELD_WINDOW - 1]])
+        with tr.timers.stage("atlas/welding_ba"):
+            self.local_mapper.welding_ba(window_a, window_b, fix_b=False)
 
     # ------------------------------------------------------------------
     def _on_kf_culled(self, kf: int):
@@ -380,11 +492,36 @@ class SlamSystem:
         errs = self.async_map.pop_errors()
         if errs:
             raise errs[0]
-        for kind, _payload in self.async_map.drain_events():
-            if kind != "loop":
+        for kind, payload in self.async_map.drain_events():
+            if kind == "loop":
+                # Poses moved under the corrected essential graph; the stale
+                # velocity model would fight the corrected map.
+                self.tracker.velocity = None
+            elif kind == "merge":
+                self._apply_async_merge(*payload)
+            else:
                 raise RuntimeError(f"unexpected mapping event {kind!r}")
-            # Poses moved under the corrected essential graph; the stale
-            # velocity model would fight the corrected map.
+
+    def _apply_async_merge(self, mA, kf, mB, cand, sim3):
+        """A merge the worker verified.  Local BA and new keyframes may
+        have moved both maps since, so the Sim3 is verified again against
+        the current poses, under both maps' locks; a failed re-verify drops
+        the merge (n_stale_merges).  As in the reference, the re-verify
+        fixes the scale only for two IMU-initialized maps, where the
+        synchronous path fixes it for every sensor but mono (ROADMAP §3)."""
+        if mA is not self.atlas.active_map or mB not in self.atlas.maps:
+            return
+        self.async_map.flush()
+        with mA.lock, mB.lock:
+            fresh = self.merger.verify(
+                mA, kf, mB, cand,
+                fix_scale=mA.imu_initialized and mB.imu_initialized)
+            if fresh is None:
+                self.sys_stats["n_stale_merges"] = (
+                    self.sys_stats.get("n_stale_merges", 0) + 1)
+                return
+            with self.tracker.timers.stage("atlas/merge"):
+                self._apply_merge(mA, self.merger.merge(mA, kf, mB, cand, fresh))
             self.tracker.velocity = None
 
     def _timed(self, process, timestamp, *args):
@@ -422,6 +559,7 @@ class SlamSystem:
         if self.async_map is not None:
             self.async_map.flush()
             self._drain_async_events()
+            self.async_map.flush()
 
     def shutdown(self):
         """System::Shutdown: drain and stop the background worker."""
@@ -453,6 +591,133 @@ class SlamSystem:
                 ts, x, y, z, qw, qx, qy, qz = r
                 f.write(f"{ts:.6f} {x:.7f} {y:.7f} {z:.7f} "
                         f"{qx:.7f} {qy:.7f} {qz:.7f} {qw:.7f}\n")
+
+    # ------------------------------------------------------------------
+    # The npz layout of the reference's checkpoint, key for key, so that a
+    # checkpoint written by either package loads in the other.
+    ATLAS_ARRAY_FIELDS = [
+        "kf_R", "kf_t", "kf_valid", "kf_frame_id", "kf_timestamp",
+        "kf_kp_uv", "kf_kp_level", "kf_kp_angle", "kf_kp_valid",
+        "kf_desc", "kf_kp_patch", "kf_kp_ur", "kf_kp_lm", "lm_pos",
+        "lm_valid", "lm_desc", "lm_patch", "lm_normal", "lm_min_dist",
+        "lm_max_dist", "lm_first_kf", "lm_visible", "lm_found",
+        "kf_redirect", "kf_redirect_R", "kf_redirect_t",
+        "kf_v", "kf_bias",
+    ]
+
+    def save_atlas(self, path):
+        """Whole-session checkpoint (System::SaveAtlas): every map's tables
+        (``map{i}/<field>``, ``map{i}/scalars``), the vocabulary with its
+        checksum (``voc/*``, ``voc/md5``) and the active map's loop edges.
+        The inertial session state (``imu/*``) waits for the inertial
+        sensors (ROADMAP item 15)."""
+        self.flush()
+        payload = {"n_maps": np.int64(len(self.atlas.maps)),
+                   "active": np.int64(self.atlas.active)}
+        for i, m in enumerate(self.atlas.maps):
+            for f_ in self.ATLAS_ARRAY_FIELDS:
+                payload[f"map{i}/{f_}"] = getattr(m, f_)
+            payload[f"map{i}/scalars"] = np.asarray(
+                [m.n_kf, m.n_lm, m.next_lm, m.change_idx, m.map_id,
+                 m.next_kf, int(m.imu_initialized), int(m.imu_ba2)])
+        # The inverted file is rebuilt at load from the vocabulary and the
+        # keyframe descriptors; what persists and binds is the vocabulary.
+        if self.voc is not None:
+            for k, v in vocabulary_arrays(self.voc).items():
+                payload[f"voc/{k}"] = v
+            payload["voc/md5"] = np.frombuffer(
+                vocabulary_checksum(self.voc).encode(), np.uint8)
+        if self.loop_closer is not None and self.loop_closer.loop_edges:
+            payload["loop_edges"] = np.asarray(self.loop_closer.loop_edges,
+                                               np.int64)
+        np.savez_compressed(path, **payload)
+
+    def load_atlas(self, path):
+        """Rebuild the Atlas from a checkpoint; the active map resumes by
+        relocalization (System::LoadAtlas).  The stored vocabulary is
+        restored, never retrained, and bound by checksum to a configured
+        vocabulary file; the recognition index is rebuilt from it."""
+        data = np.load(path, allow_pickle=False)
+        self.atlas = Atlas()
+        for i in range(int(data["n_maps"])):
+            m = MapState(max_kf=data[f"map{i}/kf_valid"].shape[0],
+                         max_kp=data[f"map{i}/kf_desc"].shape[1],
+                         max_lm=data[f"map{i}/lm_pos"].shape[0])
+            for f_ in self.ATLAS_ARRAY_FIELDS:
+                key = f"map{i}/{f_}"
+                if key in data:
+                    setattr(m, f_, data[key].copy())
+            sc = data[f"map{i}/scalars"]
+            m.n_kf, m.n_lm, m.next_lm, m.change_idx, m.map_id = (
+                int(sc[0]), int(sc[1]), int(sc[2]), int(sc[3]), int(sc[4]))
+            m.next_kf = int(sc[5]) if sc.size > 5 else int(m.n_kf)
+            if sc.size > 7:
+                m.imu_initialized = bool(sc[6])
+                m.imu_ba2 = bool(sc[7])
+            self.atlas.maps.append(m)
+        self.atlas.active = int(data["active"])
+        m = self.atlas.active_map
+        self.local_mapper = LocalMapper(cfg=self.cfg.tracker, map=m,
+                                        on_kf_culled=self._on_kf_culled)
+        self.tracker = self._build_tracker(m)
+        self.local_mapper.timers = self.tracker.timers
+        self.tracker.async_map = self.async_map
+        # The inertial state (_restore_imu_state, imu/* keys) waits for the
+        # inertial sensors (ROADMAP item 15).
+        self.tracker.state = (TrackState.NOT_INITIALIZED if m.n_kf == 0
+                              else TrackState.RECENTLY_LOST)
+        if not m.n_kf:
+            return
+        self.tracker.ref_kf = int(np.nonzero(m.kf_valid)[0][-1])
+        self.voc = None
+        self.db = None
+        self.loop_closer = None
+        if "voc/kind" in data:
+            self._restore_vocabulary(data)
+        else:
+            self._ensure_vocabulary()
+        if self.loop_closer is not None and "loop_edges" in data:
+            self.loop_closer.loop_edges = [(int(a), int(b))
+                                           for a, b in data["loop_edges"]]
+        # A last frame at the newest keyframe, so that tracking has a pose.
+        ref = self.tracker.ref_kf
+        lf = Frame(frame_id=-1, timestamp=float(m.kf_timestamp[ref]),
+                   uv=m.kf_kp_uv[ref].copy(), level=m.kf_kp_level[ref].copy(),
+                   angle=m.kf_kp_angle[ref].copy(),
+                   response=np.zeros(m.max_kp, np.float32),
+                   desc=m.kf_desc[ref].copy(), valid=m.kf_kp_valid[ref].copy(),
+                   device=self.device)
+        lf.R_cw = m.kf_R[ref].copy()
+        lf.t_cw = m.kf_t[ref].copy()
+        lf.pose_ok = True
+        self.tracker.last_frame = lf
+
+    def _restore_vocabulary(self, data):
+        """Vocabulary, database and loop closer from the checkpoint's
+        stored vocabulary, with the checksum binding (System.cc:1508): a
+        corrupt copy, or a configured vocabulary file with other content,
+        raises ValueError."""
+        z = {k.split("/", 1)[1]: data[k] for k in data.files
+             if k.startswith("voc/")}
+        stored_md5 = bytes(z.pop("md5")).decode() if "md5" in z else None
+        self.voc = vocabulary_from_arrays(z, device=self.device)
+        if stored_md5 and vocabulary_checksum(self.voc) != stored_md5:
+            raise ValueError("atlas checkpoint is corrupt: vocabulary content "
+                             "does not match its stored checksum")
+        if self.cfg.vocabulary_path is not None and stored_md5:
+            p = str(self.cfg.vocabulary_path)
+            cur = (load_dbow2_text(p, device=self.device) if p.endswith(".txt")
+                   else load_vocabulary(p, device=self.device))
+            if vocabulary_checksum(cur) != stored_md5:
+                raise ValueError(
+                    "vocabulary checksum mismatch: the checkpoint was built "
+                    f"with a different vocabulary than {p}")
+        m = self.atlas.active_map
+        self.db = KeyframeDatabase(self.voc)
+        self.map_dbs = {m.map_id: self.db}
+        self.loop_closer = self._loop_closer(m, self.db)
+        for k in np.nonzero(m.kf_valid)[0]:
+            self.db.add(int(k), m.kf_desc[k], m.kf_kp_valid[k])
 
     def stats(self):
         m = self.atlas.active_map

@@ -11,6 +11,9 @@ import torch
 
 from orb_slam3_study_kr_tpu_torch.ops import cuda_fast, cuda_hamming, cuda_matching
 from orb_slam3_study_kr_tpu_torch.ops import orb, track_match
+from orb_slam3_study_kr_tpu_torch.pipeline.map_merging import MapMerger
+from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig
+from orb_slam3_study_kr_tpu_torch.slam_map.map_state import MapState
 
 pytestmark = pytest.mark.gpu
 
@@ -229,3 +232,66 @@ def test_k3_wrapper_checks(dev):
         with pytest.raises(ValueError, match="aligned"):
             fn(q, v, torch.zeros(4 * 256 + 1, dtype=torch.uint8,
                                  device=dev)[1:].view(4, 256), v)
+
+
+def _merge_pair(seed=0, sigma=0.7, n_pts=120):
+    """tests/test_map_merging.py's two gauges of one scene (three keyframes
+    each, map B = sigma Rz(0.4) map A + t), on the port's MapState."""
+    rng = np.random.default_rng(seed)
+    cfg = TrackerConfig(device="cpu")
+    K = np.array([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1]],
+                 np.float32)
+    X = np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-1.5, 1.5, n_pts),
+                  rng.uniform(4, 8, n_pts)], -1).astype(np.float32)
+    desc = (rng.random((n_pts, 256)) > 0.5).astype(np.uint8)
+
+    def rot_z(a):
+        c, s = np.cos(a), np.sin(a)
+        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+
+    Rg, tg = rot_z(0.4), np.array([0.3, -0.2, 0.1], np.float32)
+
+    def make(Xw, poses):
+        m = MapState(max_kf=16, max_kp=n_pts, max_lm=1024)
+        ids = m.add_landmarks(Xw, desc, 0)
+        for k, (R, c) in enumerate(poses):
+            t = (-R @ c).astype(np.float32)
+            p = Xw @ R.T + t
+            uv = ((p[:, :2] / p[:, 2:3]) @ K[:2, :2].T + K[:2, 2]).astype(np.float32)
+            m.add_keyframe(R, t, uv, np.zeros(n_pts, np.int32),
+                           np.zeros(n_pts, np.float32), np.ones(n_pts, bool),
+                           desc, k, float(k), kp_lm=ids.astype(np.int32))
+        return m
+
+    poses = [(rot_z(0.03 * k), np.array([0.2 * k, 0.05 * k, -0.1 * k],
+                                        np.float32)) for k in range(3)]
+    mA = make(X, poses)
+    mB = make((sigma * X @ Rg.T + tg).astype(np.float32),
+              [((R @ Rg.T).astype(np.float32),
+                (sigma * Rg @ c + tg).astype(np.float32)) for R, c in poses])
+    return mA, mB
+
+
+def test_merge_verify_on_the_card_matches_the_cpu(dev):
+    """MapMerger.verify on the card against the same call on the CPU (the
+    same RANSAC draws): identical verified pairs, the same Sim3 within
+    float tolerance, and exactly one K3 launch per verification, with no
+    fallback to the plain form."""
+    draws = np.random.default_rng(9).random((128, 256)).astype(np.float32)
+    out = {}
+    for d in ("cpu", "cuda"):
+        merger = MapMerger(cfg=TrackerConfig(device=d),
+                           uniforms_fn=lambda iters, n: draws)
+        cuda_hamming.hamming_nn.launches = 0
+        out[d] = [merger.verify(*_merge_pair(seed)[:1], 0,
+                                _merge_pair(seed)[1], 0) for seed in (0, 1)]
+        torch.cuda.synchronize()
+        out[d + "_k3"] = cuda_hamming.hamming_nn.launches
+    assert out["cpu_k3"] == 0 and out["cuda_k3"] == 2
+    for c, g in zip(out["cpu"], out["cuda"]):
+        assert c is not None and g is not None
+        for a, b in zip(c["pairs"], g["pairs"]):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(c["R12"], g["R12"], atol=1e-4)
+        np.testing.assert_allclose(c["t12"], g["t12"], atol=1e-4)
+        assert abs(c["s12"] / g["s12"] - 1.0) < 1e-4

@@ -17,6 +17,7 @@ from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
 from orb_slam3_study_kr_tpu_torch.pipeline.global_ba import global_bundle_adjustment
 from orb_slam3_study_kr_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam3_study_kr_tpu_torch.pipeline.loop_closing import LoopCloser
+from orb_slam3_study_kr_tpu_torch.pipeline.map_merging import MapMerger
 from orb_slam3_study_kr_tpu_torch.pipeline.stereo_tracking import StereoTracker
 from orb_slam3_study_kr_tpu_torch.pipeline.tracking import MonoTracker, TrackerConfig
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import MapState
@@ -76,6 +77,7 @@ BUILDS = {
                                                   async_mapping=True),
     "LocalMapper": lambda cfg, tmp: LocalMapper(cfg=cfg, map=_map()),
     "LoopCloser": lambda cfg, tmp: LoopCloser(cfg=cfg, map=_map(), db=_db()),
+    "MapMerger": lambda cfg, tmp: MapMerger(cfg=cfg),
     "global_bundle_adjustment": lambda cfg, tmp: global_bundle_adjustment(
         cfg, _map()),
     "train_vocabulary": lambda cfg, tmp: voc_mod.train_vocabulary(

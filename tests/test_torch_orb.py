@@ -192,3 +192,19 @@ def test_extract_orb_angle_desc_patch(extracted):
     dp = np.abs(tf.patch.numpy()[v].astype(int) - np.asarray(jf.patch)[v].astype(int))
     assert dp.max() <= 1
     assert np.abs(tpy.numpy() - np.asarray(jpy)).max() < 2e-4
+
+
+def test_featureless_frame_extracts_like_reference():
+    """A uniform frame (a covered lens): every score is 0, the zero-score
+    ties pick cells in the padding beyond a level's edge, and the
+    sub-pixel read clamps to the edge as the reference's jnp gather does
+    instead of raising.  Keypoints, levels and validity (none valid) as
+    in the reference."""
+    jc, tc = jorb.OrbConfig(), torb.OrbConfig()     # 752x480: 8 levels
+    img = np.full((jc.height, jc.width), 80.0, np.float32)
+    fj = jorb.extract_orb(jnp.asarray(img), jc)
+    ft = torb.extract_orb(torch.as_tensor(img), tc)
+    assert not ft.valid.any()
+    np.testing.assert_array_equal(ft.valid.numpy(), np.asarray(fj.valid))
+    np.testing.assert_array_equal(ft.level.numpy(), np.asarray(fj.level))
+    np.testing.assert_allclose(ft.uv.numpy(), np.asarray(fj.uv), atol=1e-4)

@@ -308,6 +308,7 @@ def test_port_imports_no_jax():
             "import orb_slam3_study_kr_tpu_torch.ops.stereo\n"
             "import orb_slam3_study_kr_tpu_torch.pipeline.stereo_tracking\n"
             "import orb_slam3_study_kr_tpu_torch.pipeline.async_mapping\n"
+            "import orb_slam3_study_kr_tpu_torch.pipeline.map_merging\n"
             "import orb_slam3_study_kr_tpu_torch.io.rectify\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('orb_slam3_study_kr_tpu.'))\n"
@@ -350,32 +351,43 @@ def test_unported_routes_raise(kw):
 
 
 def test_default_config_runs_and_merge_raises():
-    """SystemConfig() (loop closing on) builds on the CPU; once a second
-    map exists beside a stored map with a recognition index, the unported
-    map merge raises instead of returning quietly."""
+    """SystemConfig() (loop closing on) builds on the CPU; with one map
+    there is nothing to merge, and once the map is stored on a loss and a
+    second map recognises it (tests/test_map_merging.py's two gauges of
+    one scene), _try_merge welds the active map into the stored one
+    instead of raising: one map left, the stored one active, the session
+    rebound to it and its welding BA run."""
     from orb_slam3_study_kr_tpu_torch.bow import KeyframeDatabase, train_vocabulary
+    from test_map_merging import _build_pair
+    from test_torch_atlas import _install
 
     slam = SlamSystem(SystemConfig(device="cpu"))
     assert slam.cfg.enable_loop_closing and slam.loop_closer is None
-    rng = np.random.default_rng(0)
+    _, jA, jB, *_ = _build_pair(np.random.default_rng(0))
     m0 = slam.atlas.active_map
-    n = m0.max_kp
-    kf = m0.add_keyframe(np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
-                         rng.uniform(0, 400, (n, 2)).astype(np.float32),
-                         np.zeros(n, np.int32), np.zeros(n, np.float32),
-                         np.ones(n, bool),
-                         rng.integers(0, 2, (n, 256)).astype(np.uint8), 0, 0.0)
-    slam.voc = train_vocabulary(m0.kf_desc[kf], k=4, L=2, device="cpu")
+    _install(m0, jB)
+    kfs = np.nonzero(m0.kf_valid)[0]
+    slam.voc = train_vocabulary(m0.kf_desc[kfs][m0.kf_kp_valid[kfs]], k=4, L=2,
+                                device="cpu")
     slam.db = KeyframeDatabase(slam.voc)
     slam.map_dbs[m0.map_id] = slam.db
-    slam.db.add(kf, m0.kf_desc[kf], m0.kf_kp_valid[kf])
-    assert not slam._try_merge(kf)          # one map: nothing to merge
+    for kf in kfs:
+        slam.db.add(int(kf), m0.kf_desc[kf], m0.kf_kp_valid[kf])
+    assert not slam._try_merge(0)           # one map: nothing to merge
     slam.cfg.min_kf_spawn = 1               # store the map on loss
     slam._on_tracking_lost()
     assert len(slam.atlas.maps) == 2 and slam.loop_closer is not None
-    assert slam.atlas.active_map is not m0
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        slam._try_merge(0)
+    m1 = slam.atlas.active_map
+    assert m1 is not m0
+    _install(m1, jA)
+    slam.tracker.ref_kf = 0
+    assert slam._try_merge(0)
+    assert slam.atlas.maps == [m0] and slam.atlas.active_map is m0
+    assert slam.tracker.map is m0 and slam.local_mapper.map is m0
+    assert slam.loop_closer.map is m0 and slam.map_dbs == {m0.map_id: slam.db}
+    assert slam.merger.stats == {"n_attempts": 1, "n_verified": 1, "n_merged": 1}
+    assert slam.local_mapper.stats["n_welding_ba"] == 1
+    assert m0.n_kf == 6 and len(slam.db.vectors) == 6
 
 
 def test_config_conversion_from_reference_fields():

@@ -1,0 +1,126 @@
+"""Recorded sessions of both packages on the CPU, under ``-m slow``.
+
+- The 40-frame seed-5 monocular session of ``test_async_mono_pipeline``,
+  synchronous and with ``async_mapping=True``, three runs of each mode
+  through each package: final state, pose-sanity-gate rejections
+  (``sanity_fail``), keyframes and scaled ATE per run.
+- The 30-frame rectified stereo session of
+  ``test_stereo_slam_textured_lateral`` (seed 3, baseline 0.11) through
+  both packages: the fitted scale and the metric ATE of each.
+
+Each test prints one ``RECORD`` JSON line with what it measured.  Run with
+``JAX_PLATFORMS=cpu python -m pytest -q -s -m slow
+tests/test_torch_session_records.py``.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from orb_slam3_study_kr_tpu.pipeline import SlamSystem as JSlamSystem
+from orb_slam3_study_kr_tpu.pipeline import SystemConfig as JSystemConfig
+from orb_slam3_study_kr_tpu.pipeline.tracking import TrackerConfig as JTrackerConfig
+from orb_slam3_study_kr_tpu_torch.evaluation import ate_rmse
+from orb_slam3_study_kr_tpu_torch.io import synthetic
+from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
+from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig
+
+torch.set_num_threads(2)
+
+N_ASYNC, RUNS = 40, 3
+N_STEREO, BASELINE = 30, 0.11
+
+
+def _centers(R, t):
+    return -np.einsum("nij,nj->ni", R.transpose(0, 2, 1), t)
+
+
+def _mono_run(package, async_mapping):
+    rng = np.random.default_rng(5)
+    world = synthetic.make_textured_world(rng)
+    R, t = synthetic.lateral_trajectory(N_ASYNC, x_span=1.0)
+    if package == "jax":
+        slam = JSlamSystem(JSystemConfig(sensor="mono",
+                                         async_mapping=async_mapping))
+    else:
+        slam = SlamSystem(SystemConfig(sensor="mono", async_mapping=async_mapping,
+                                       device="cpu"))
+    ts = np.arange(N_ASYNC) * 0.05
+    try:
+        for i in range(N_ASYNC):
+            slam.track_monocular(synthetic.render_textured(world, R[i], t[i],
+                                                           rng=rng), ts[i])
+        slam.flush()
+        rows = slam.trajectory()
+        rmse, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4], ts, _centers(R, t),
+                               with_scale=True)
+        return dict(state=slam.state.name,
+                    sanity_fail=slam.tracker.stats.get("sanity_fail", 0),
+                    n_kf=slam.stats()["n_kf"], ate_scaled=float(rmse), nm=nm)
+    finally:
+        slam.shutdown()
+
+
+@pytest.mark.slow
+def test_async_session_final_state_record():
+    """Three runs per package and mode.  The walls are the reference
+    test's, apart from the final state, which is what is recorded: every
+    run ends OK or RECENTLY_LOST, never LOST."""
+    runs = {f"{p}/{'async' if a else 'sync'}": [_mono_run(p, a)
+                                                 for _ in range(RUNS)]
+            for p in ("jax", "torch") for a in (False, True)}
+    print("RECORD", json.dumps(runs))
+    for key, rs in runs.items():
+        for r in rs:
+            assert r["state"] in ("OK", "RECENTLY_LOST"), (key, r)
+            assert r["nm"] > 25 and r["ate_scaled"] < 0.4, (key, r)
+            assert r["n_kf"] >= 4, (key, r)
+
+
+def _stereo_run(package):
+    rng = np.random.default_rng(3)
+    world = synthetic.make_textured_world(rng, depth=6.0)
+    R, t = synthetic.lateral_trajectory(N_STEREO, x_span=1.0, z_span=0.0,
+                                        y_amp=0.0)
+    if package == "jax":
+        slam = JSlamSystem(JSystemConfig(sensor="stereo", baseline=BASELINE,
+                                         tracker=JTrackerConfig(fps=10)))
+    else:
+        slam = SlamSystem(SystemConfig(sensor="stereo", baseline=BASELINE,
+                                       tracker=TrackerConfig(fps=10),
+                                       device="cpu"))
+    for i in range(N_STEREO):
+        imgL = synthetic.render_textured(world, R[i], t[i], rng=rng)
+        _, t_r = synthetic.stereo_right_pose(R[i], t[i], BASELINE)
+        imgR = synthetic.render_textured(world, R[i], t_r, rng=rng)
+        slam.track_stereo(imgL, imgR, i * 0.1)
+    rows = slam.trajectory()
+    ts = np.arange(N_STEREO) * 0.1
+    metric, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4], ts, _centers(R, t),
+                             with_scale=False)
+    _, _, scale = ate_rmse(rows[:, 0], rows[:, 1:4], ts, _centers(R, t),
+                           with_scale=True)
+    return dict(state=slam.state.name, scale=float(scale),
+                ate_metric=float(metric), nm=nm, rows=rows)
+
+
+@pytest.mark.slow
+def test_stereo_session_scale_record():
+    """Both packages on the same 30 stereo pairs: the fitted scales agree
+    within 2e-3 (the 8-frame prefix's agreement in metres), and each
+    passes the reference's walls (metric ATE < 0.15, scale within 10 %)."""
+    j, p = _stereo_run("jax"), _stereo_run("torch")
+    diff = None
+    if j["rows"].shape == p["rows"].shape:
+        diff = [round(float(d), 6) for d in
+                np.abs(j["rows"][:, 1:4] - p["rows"][:, 1:4]).max(axis=1)]
+    print("RECORD", json.dumps(dict(
+        jax={k: v for k, v in j.items() if k != "rows"},
+        torch={k: v for k, v in p.items() if k != "rows"},
+        centre_diff_per_frame=diff)))
+    for r in (j, p):
+        assert r["state"] == "OK" and r["nm"] > 20
+        assert r["ate_metric"] < 0.15 and abs(r["scale"] - 1.0) < 0.10
+    assert abs(j["scale"] - p["scale"]) < 2e-3, (j["scale"], p["scale"])
