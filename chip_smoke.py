@@ -48,8 +48,17 @@ the int8 tensor-core rate of 1979 T/s).
      is recognised against the stored one, verified, one K3 launch per
      verification, and welded back into one map by the welding BA), then
      save_atlas, load_atlas into a fresh SlamSystem and a relocalization
-     against the loaded map.
-Phases 6-13 are the main paths: each resets the kernels' launch counters
+     against the loaded map;
+ 14. mono-inertial: test_mono_inertial_pipeline's 60 frames (seed 11, IMU
+     init schedule 2.5 / 4.0 / 5.0 s) through track_monocular(imu=): fused
+     frames until the IMU is initialized, then the split rounds with the
+     pose-inertial solves (K2 on every match), local inertial BA;
+ 15. RGB-D-inertial: test_rgbd_inertial_pipeline's 50 frames (seed 13,
+     fixed-scale IMU init) through track_rgbd(imu=).
+Phase 8 also relocalizes a view of frame 20 with 96 % of its descriptors
+randomized: it fails the first pass's 50-inlier acceptance, so the
+widening re-search runs (one K2 launch per pass).
+Phases 6-15 are the main paths: each resets the kernels' launch counters
 just before it and reads them just after; the kernels line sums them.
 Their frames are rendered by worker processes, one per path, while the
 kernels build (render_scenario), with the seeds and in the order each
@@ -409,7 +418,14 @@ class _Launches:
 
 
 N_BLACK, N_REPLAY = 14, 26      # the Atlas phase's noise and replay frames
-SCENARIOS = ("loop_off", "default", "atlas", "stereo", "rgbd", "async")
+RELOC_KEEP = 0.04               # descriptors kept in the re-search view
+SCENARIOS = ("loop_off", "default", "atlas", "stereo", "rgbd", "async",
+             "mono_inertial", "rgbd_inertial")
+# test_mono_inertial_pipeline (seed 11, 60 frames) and
+# test_rgbd_inertial_pipeline (seed 13, 50 frames): one excited trajectory
+# with its 200 Hz IMU stream, the init schedule (2.5, 4.0, 5.0) s.
+INERTIAL = {"mono_inertial": (11, 60), "rgbd_inertial": (13, 50)}
+IMU_INIT_TIMES = (2.5, 4.0, 5.0)
 
 
 def render_scenario(name):
@@ -466,6 +482,25 @@ def render_scenario(name):
         R, t = synthetic.lateral_trajectory(40, x_span=1.0)
         R, t = R[:26], t[:26]
         frames = [(render(world, R[i], t[i], rng=rng),) for i in range(26)]
+    elif name in INERTIAL:
+        seed, n = INERTIAL[name]
+        rng = np.random.default_rng(seed)
+        world = synthetic.make_textured_world(rng, depth=6.0)
+        traj = synthetic.inertial_trajectory(
+            n, fps=10.0, imu_freq=200.0, rng=rng, amp=(0.45, 0.18, 0.0),
+            omega=(1.5, 0.9, 0.0), rot_amp=(0.0, 0.0, 0.0))
+        R, t = traj["R_cw"], traj["t_cw"]
+        frames = []
+        for i in range(n):
+            if name == "mono_inertial":
+                frames.append((render(world, R[i], t[i], rng=rng),))
+            else:
+                img, depth = render(world, R[i], t[i], rng=rng,
+                                    return_depth=True)
+                frames.append((img, np.where(np.isfinite(depth), depth, 0.0)))
+        return dict(world=world, R_gt=R, t_gt=t, frames=frames,
+                    imu=traj["imu"], timestamps=traj["timestamps"],
+                    bias=traj["bias"])
     else:
         raise ValueError(f"unknown scenario {name!r}")
     return dict(world=world, R_gt=R, t_gt=t, frames=frames)
@@ -584,9 +619,40 @@ def phase_reloc(dev, slam, world, R_gt, t_gt):
         raise AssertionError(f"no relocalization at full acceptance: {stats}")
     if searched < 2 or k3 < searched:
         raise AssertionError(f"K3 launched {k3} times over {searched} candidates")
+    # A view that fails the first pass's 50-inlier acceptance: frame 20 with
+    # all but RELOC_KEEP of its descriptors randomized, so the widening
+    # re-search (wide, then narrow, each a K2 match) runs after the PnP
+    # pose (on the CPU: 35 inliers, both passes, a weak relocalization).
+    slam.sys_stats.clear()
+    img = synthetic.render_textured(world, R_gt[20], t_gt[20],
+                                    rng=np.random.default_rng(324))
+    feats = orb.extract_orb(torch.as_tensor(img, device=dev), cfg)
+    host = {k: getattr(feats, k).cpu().numpy().copy()
+            for k in ("uv", "level", "angle", "response", "desc", "valid")}
+    g = np.random.default_rng(325)
+    bad = g.random(host["desc"].shape[0]) >= RELOC_KEEP
+    host["desc"][bad] = g.integers(0, 2, (int(bad.sum()), 256), dtype=np.uint8)
+    frame = Frame(frame_id=10_020, timestamp=119.0, device=dev, **host)
+    with _Launches() as research:
+        t0 = time.perf_counter()
+        ok = slam._relocalize(frame)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    rstats = dict(slam.sys_stats)
+    if rstats.get("n_reloc_research", 0) < 1 or research.counts["gated_nn"] < 1:
+        raise AssertionError(f"the degraded view did not reach the re-search: "
+                             f"{rstats}, launches {research.counts}")
+    out["research"] = dict(ms=ms, ok=bool(ok), stats=rstats,
+                        n_good=int((frame.kp_lm != NO_LM).sum()),
+                        launches=research.counts)
+    launches = {k: counter.counts[k] + research.counts[k]
+                for k in counter.counts}
     print(f"phase relocalization: frames 14 and 26 recovered {out}; stats "
-          f"{stats}; launches {counter.counts} over {searched} candidates searched")
-    return dict(frames=out, stats=stats, launches=counter.counts)
+          f"{stats}; launches {counter.counts} over {searched} candidates "
+          f"searched; degraded view of frame 20: re-search {rstats}, "
+          f"{'relocalized' if ok else 'not relocalized'}, {ms:.2f} ms, "
+          f"launches {research.counts}")
+    return dict(frames=out, stats=stats, launches=launches)
 
 
 def phase_atlas(dev, slam, scen):
@@ -1000,6 +1066,138 @@ def phase_async(dev, scen, sync_warm_ms):
     return dict(r, worker=worker, sync_frame_ms_median_warm=sync_warm_ms)
 
 
+def _inertial_session(dev, scen, sensor):
+    """One inertial session through its public entry point (imu= rows per
+    frame), launch counters reset around it; per-frame times kept apart by
+    the rounds each frame took (the tracker's fused and split counters),
+    frames whose IMU stage changed left out."""
+    import numpy as np
+    import torch
+    from orb_slam3_study_kr_tpu_torch.evaluation import ate_rmse
+    from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
+    from orb_slam3_study_kr_tpu_torch.pipeline.tracking import (TrackerConfig,
+                                                                TrackState)
+    frames, imu, ts = scen["frames"], scen["imu"], scen["timestamps"]
+    n = len(frames)
+    slam = SlamSystem(SystemConfig(
+        sensor=sensor, imu_init_times=IMU_INIT_TIMES, baseline=BASELINE,
+        tracker=TrackerConfig(fps=10, device=str(dev)), device=str(dev)))
+    track = (slam.track_monocular if sensor == "mono-inertial"
+             else slam.track_rgbd)
+    stages, rounds = [], []
+    with _Launches() as counter:
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            before = [slam.tracker.stats.get(k, 0)
+                      for k in ("fused_frames", "split_frames")]
+            track(*f, ts[i], imu=imu[i])
+            stages.append(slam.tracker.imu_stage)
+            rounds.append([slam.tracker.stats.get(k, 0) - b for k, b in
+                           zip(("fused_frames", "split_frames"), before)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    tr = slam.tracker
+    if slam.state not in (TrackState.OK, TrackState.RECENTLY_LOST):
+        raise AssertionError(f"{sensor}: final state {slam.state}")
+    if tr.imu_stage < 1:
+        raise AssertionError(f"{sensor}: IMU initialization never accepted")
+    rows = slam.trajectory()
+    if not np.isfinite(rows[:, 1:]).all():
+        raise AssertionError(f"{sensor}: non-finite trajectory")
+    cen = _centers(scen["R_gt"], scen["t_gt"])
+    metric, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4], ts, cen,
+                             with_scale=False)
+    scaled, _, _ = ate_rmse(rows[:, 0], rows[:, 1:4], ts, cen, with_scale=True)
+    k1, k2 = counter.counts["fast_nms_blur"], counter.counts["gated_nn"]
+    fused = tr.stats.get("fused_frames", 0)
+    split = tr.stats.get("split_frames", 0)
+    if k1 != n:
+        raise AssertionError(f"{sensor}: K1 launched {k1} times, expected one "
+                             f"per frame ({n})")
+    if split < 1 or k2 < 4 * fused + 2 * split:
+        raise AssertionError(f"{sensor}: K2 launched {k2} times over {fused} "
+                             f"fused and {split} split frames")
+    t_ms = np.asarray(slam.timings) * 1e3
+    st, rd = np.asarray(stages), np.asarray(rounds)
+    steady = np.r_[False, st[1:] == st[:-1]]
+    warm = np.arange(n) >= 5
+    before = t_ms[warm & steady & (rd[:, 0] > 0) & (rd[:, 1] == 0)]
+    after = t_ms[steady & (rd[:, 1] > 0) & (rd[:, 0] == 0)]
+    summ = tr.timers.summary()
+    imu_init = {k: dict(n=v["n"], median_ms=v["median_ms"], max_ms=v["max_ms"])
+                for k, v in summ.items() if k.startswith("imu/init")}
+    local_ba = {k: dict(n=summ[k]["n"], median_ms=summ[k]["median_ms"])
+                for k in ("mapping/local_ba", "mapping/local_inertial_ba")
+                if k in summ}
+    init_at = int(np.argmax(st >= 1))
+    return slam, dict(
+        state=slam.state.name, imu_stage=tr.imu_stage,
+        stage_at=[int(np.argmax(st >= s)) if (st >= s).any() else None
+                  for s in (1, 2, 3)],
+        imu_init_scale=tr.stats.get("imu_init_scale"),
+        imu_refine_scale=tr.stats.get("imu_refine_scale"),
+        bias=tr.bias.tolist(), bias_true=scen["bias"].tolist(),
+        ate_metric=metric, ate_scaled=scaled, nm=nm,
+        n_kf=int(slam.atlas.active_map.kf_valid.sum()),
+        frame_ms_median_fused=float(np.median(before)) if before.size else None,
+        frame_ms_median_split=float(np.median(after)) if after.size else None,
+        n_fused_timed=int(before.size), n_split_timed=int(after.size),
+        init_frame_ms=float(t_ms[init_at]), imu_init=imu_init,
+        local_ba=local_ba, fused_frames=fused, split_frames=split,
+        inertial_solves=tr.stats.get("inertial_solves", 0),
+        n_inertial_ba=tr.stats.get("n_inertial_ba", 0),
+        launches=counter.counts, wall_s=wall,
+        frame_ms=[float(x) for x in t_ms], stages=stages)
+
+
+def _inertial_line(name, r):
+    return (f"phase {name} path: {len(r['frame_ms'])} frames, final state "
+            f"{r['state']}, IMU stage {r['imu_stage']} (stages reached at "
+            f"frames {r['stage_at']}), init scale {r['imu_init_scale']:.5f}"
+            f" (latest {r['imu_refine_scale']:.5f}), bias "
+            f"{[round(b, 5) for b in r['bias']]} (true "
+            f"{[round(b, 5) for b in r['bias_true']]}); metric ATE "
+            f"{r['ate_metric']:.5f}, scaled {r['ate_scaled']:.5f} over "
+            f"{r['nm']} frames, n_kf {r['n_kf']}; frame medians: fused "
+            f"{r['frame_ms_median_fused']} ms ({r['n_fused_timed']} frames), "
+            f"split {r['frame_ms_median_split']} ms ({r['n_split_timed']} "
+            f"frames), init frame {r['init_frame_ms']:.2f} ms; imu/init "
+            f"{json.dumps(r['imu_init'])}; local BA {json.dumps(r['local_ba'])}"
+            f"; {r['inertial_solves']} pose-inertial solves, "
+            f"{r['n_inertial_ba']} inertial BAs; wall {r['wall_s']:.2f} s; "
+            f"launches {r['launches']} over {r['fused_frames']} fused and "
+            f"{r['split_frames']} split frames")
+
+
+def phase_mono_inertial(dev, scen):
+    import numpy as np
+    _, r = _inertial_session(dev, scen, "mono-inertial")
+    s = r["imu_init_scale"]
+    bg_err = float(np.abs(np.asarray(r["bias"][:3])
+                          - np.asarray(r["bias_true"][:3])).max())
+    if not (s is not None and 1.5 < s < 30.0):
+        raise AssertionError(f"mono-inertial: init scale {s}")
+    if bg_err >= 3e-3:
+        raise AssertionError(f"mono-inertial: gyro bias error {bg_err}")
+    if not (r["nm"] > 40 and r["ate_scaled"] < 0.35):
+        raise AssertionError(f"mono-inertial: nm {r['nm']} scaled ATE "
+                             f"{r['ate_scaled']}")
+    print(_inertial_line("mono-inertial", r))
+    return dict(r, gyro_bias_err=bg_err)
+
+
+def phase_rgbd_inertial(dev, scen):
+    _, r = _inertial_session(dev, scen, "rgbd-inertial")
+    s = r["imu_init_scale"]
+    if not (s is not None and 0.8 < s < 1.25):
+        raise AssertionError(f"rgbd-inertial: init scale {s}")
+    if not (r["nm"] > 35 and r["ate_metric"] < 0.25):
+        raise AssertionError(f"rgbd-inertial: nm {r['nm']} metric ATE "
+                             f"{r['ate_metric']}")
+    print(_inertial_line("RGB-D-inertial", r))
+    return r
+
+
 def main(argv=None):
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1060,8 +1258,12 @@ def main(argv=None):
     out["rgbd"] = run("rgbd", phase_rgbd, dev, scen["rgbd"])
     out["async"] = run("async", phase_async, dev, scen["async"],
                        out["default"]["frame_ms_median_warm"])
+    out["mono_inertial"] = run("mono_inertial", phase_mono_inertial, dev,
+                               scen["mono_inertial"])
+    out["rgbd_inertial"] = run("rgbd_inertial", phase_rgbd_inertial, dev,
+                               scen["rgbd_inertial"])
     paths = ("loop_off", "default", "reloc", "atlas", "loop", "stereo", "rgbd",
-             "async")
+             "async", "mono_inertial", "rgbd_inertial")
     launches = {k: sum(out[p]["launches"][k] for p in paths)
                 for k in ("fast_nms_blur", "gated_nn", "hamming_nn")}
     kernels = []

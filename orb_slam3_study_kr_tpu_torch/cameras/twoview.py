@@ -41,9 +41,12 @@ def _normalize_points(kp, mask):
 
 def sample_minimal_sets(generator, mask, iters, k=8):
     """(iters, k) indices of valid matches, sampled without replacement:
-    the k smallest of uniform draws with invalid matches pushed past 1."""
+    the k smallest of uniform draws with invalid matches pushed past 1.
+    The draws come from `generator` on its own device (the host's, so that
+    a seed gives the same sets on every device) and move to mask's."""
     n = mask.shape[0]
-    u = torch.rand((iters, n), generator=generator, device=mask.device)
+    u = torch.rand((iters, n), generator=generator,
+                   device=generator.device).to(mask.device)
     u = torch.where(mask[None, :] > 0, u, torch.full_like(u, 2.0))
     return torch.argsort(u, dim=1)[:, :k]
 

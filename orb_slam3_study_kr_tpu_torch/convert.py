@@ -17,7 +17,10 @@ this module imports neither package's JAX side:
 - ``vocabulary_from_numpy`` builds the port's vocabulary from the
   reference's ``vocabulary_arrays`` (the same checksum);
 - ``loop_closer_state_from_numpy`` installs loop edges, a pending detection
-  and the cascade's counters into a port ``LoopCloser``.
+  and the cascade's counters into a port ``LoopCloser``;
+- ``imu_state_from_numpy`` installs an inertial tracker's IMU state (bias,
+  stage, keyframe interval chain, raw log, carried prior) and the map's
+  inertial tables into a port inertial tracker.
 
 - ``session_map_from_numpy`` installs a reference map and its vocabulary
   into a port ``SlamSystem`` and rebuilds the keyframe database and the
@@ -38,8 +41,7 @@ from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig, TrackS
 
 
 # Fields of the reference configs that the port's configs do not have, with
-# the reference's default values: the fisheye lens limits (ROADMAP item 16)
-# and the IMU settings (item 15).  The reference options the port has but
+# the reference's default values: the fisheye lens limits (ROADMAP item 16).  The reference options the port has but
 # does not run yet (the item 12a tracker knobs, the fisheye stereo rig) are
 # fields of the port's configs, which refuse non-default values when a
 # session is built.
@@ -48,16 +50,7 @@ REFERENCE_ONLY = {
         "fov_max_deg": 75.0,
         "fisheye_half_fov_deg": 98.0,
     },
-    "SystemConfig": {
-        "imu_noise_gyro": 1.7e-4,
-        "imu_noise_acc": 2e-3,
-        "imu_walk_gyro": 1.9e-5,
-        "imu_walk_acc": 3e-3,
-        "imu_freq": 200.0,
-        "imu_R_bc": None,
-        "imu_t_bc": None,
-        "imu_init_times": (2.0, 5.0, 15.0),
-    },
+    "SystemConfig": {},
 }
 
 
@@ -169,6 +162,51 @@ def tracker_state_from_numpy(tracker, map_tables, last_frame, velocity,
     blk["obs"] = np.asarray(blk["obs"])
     blk["map_ref"] = m
     tracker._fblk = blk
+    return tracker
+
+
+def imu_state_from_numpy(tracker, bias, imu_stage, kf_imu, imu_log,
+                         prior_info=None, prior_change_idx=-1, prev_kf_id=None,
+                         first_kf_ts=None, last_glitch_ts=-1e9, kf_v=None,
+                         kf_bias=None,
+                         imu_initialized=None, imu_ba2=None, stats=None,
+                         last_v_w=None, last_ok_ts=None):
+    """Install a reference inertial tracker's IMU state into a port
+    inertial tracker (in place), after ``tracker_state_from_numpy``.
+
+    kf_imu: {kf: (prev_kf, rows (M, 7))}; imu_log: [(frame_ts, rows)];
+    prior_info: (15, 15) or None with the map change index it was made at;
+    kf_v, kf_bias,
+    imu_initialized, imu_ba2: the map's inertial tables and flags; stats:
+    tracker counters to copy (imu_init_scale and the like); last_v_w: the
+    last frame's body velocity; last_ok_ts: the last OK frame's time."""
+    tracker.bias = np.array(bias, np.float32)
+    tracker.imu_stage = int(imu_stage)
+    tracker.kf_imu = {int(k): (int(p), np.array(r, np.float32).reshape(-1, 7))
+                      for k, (p, r) in kf_imu.items()}
+    tracker._imu_log = [(float(t), np.array(r, np.float32).reshape(-1, 7))
+                        for t, r in imu_log]
+    tracker._prior_info = (None if prior_info is None
+                           else np.array(prior_info, np.float32))
+    tracker._prior_change_idx = int(prior_change_idx)
+    tracker._prev_kf_id = None if prev_kf_id is None else int(prev_kf_id)
+    tracker._first_kf_ts = None if first_kf_ts is None else float(first_kf_ts)
+    tracker._last_glitch_ts = float(last_glitch_ts)
+    m = tracker.map
+    if kf_v is not None:
+        m.kf_v = np.array(kf_v, np.float32)
+    if kf_bias is not None:
+        m.kf_bias = np.array(kf_bias, np.float32)
+    if imu_initialized is not None:
+        m.imu_initialized = bool(imu_initialized)
+    if imu_ba2 is not None:
+        m.imu_ba2 = bool(imu_ba2)
+    if stats:
+        tracker.stats.update(stats)
+    if last_v_w is not None:
+        tracker.last_frame.v_w = np.array(last_v_w, np.float32)
+    if last_ok_ts is not None:
+        tracker.last_ok_ts = float(last_ok_ts)
     return tracker
 
 

@@ -237,6 +237,107 @@ def make_textured_world(rng, K=None, width=752, height=480, depth=6.0,
                          width=width, height=height, kb8_params=kb8_params)
 
 
+def inertial_trajectory(n_frames, fps=10.0, imu_freq=200.0,
+                        gravity_w=(0.0, 9.4, -2.8),
+                        amp=(0.5, 0.25, 0.35), omega=(0.9, 1.7, 1.3),
+                        rot_amp=(0.06, 0.10, 0.04), rot_omega=(1.1, 0.7, 1.9),
+                        look_depth=6.0,
+                        noise_gyro=1.7e-4, noise_acc=2e-3,
+                        bias_gyro=(0.004, -0.002, 0.003),
+                        bias_acc=(0.03, -0.05, 0.02),
+                        rng=None):
+    """Analytic C-infinity body trajectory with exact IMU measurements.
+
+    Body == camera frame (identity Tbc); the body starts at the origin
+    looking +z at the textured world.  Gravity has magnitude 9.81 along
+    `gravity_w` (not axis-aligned, so that the gravity direction has to be
+    estimated).  IMU samples carry constant biases and white noise at the
+    given densities (continuous sigma * sqrt(freq)).  The body rotation and
+    its right Jacobian are evaluated in float32 (``lie.so3`` on the CPU), so
+    the same rng gives the reference package's streams.
+
+    Returns dict with R_cw, t_cw (T, 3, 3), (T, 3) world->camera poses at
+    the frame times; imu, a list of T arrays (M_i, 7) [dt, ax ay az, gx gy
+    gz] covering (t_{i-1}, t_i] (imu[0] empty); vel_w (T, 3); gravity_w
+    (3,); bias (6,) [gyro, acc]; timestamps (T,).
+    """
+    import torch
+    from orb_slam3_study_kr_tpu_torch.lie import so3 as so3lib
+
+    g_dir = np.asarray(gravity_w, np.float64)
+    g_w = 9.81 * g_dir / np.linalg.norm(g_dir)
+    A = np.asarray(amp)
+    W = np.asarray(omega)
+    RA = np.asarray(rot_amp)
+    RW = np.asarray(rot_omega)
+    bg = np.asarray(bias_gyro, np.float64)
+    ba = np.asarray(bias_acc, np.float64)
+
+    def pos(t):
+        return A * np.sin(W * t)
+
+    def vel(t):
+        return A * W * np.cos(W * t)
+
+    def acc(t):
+        return -A * W * W * np.sin(W * t)
+
+    def theta(t):
+        return RA * np.sin(RW * t)
+
+    def dtheta(t):
+        return RA * RW * np.cos(RW * t)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32))
+
+    def R_wb(t):
+        return so3lib.exp_so3(f32(theta(t))).numpy().astype(np.float64)
+
+    def omega_body(t):
+        Jr = so3lib.right_jacobian_so3(f32(theta(t))).numpy().astype(np.float64)
+        return Jr @ dtheta(t)
+
+    T = n_frames
+    ts = np.arange(T) / fps
+    dt_imu = 1.0 / imu_freq
+    sg = noise_gyro * np.sqrt(imu_freq)
+    sa = noise_acc * np.sqrt(imu_freq)
+
+    R_cw_list, t_cw_list, v_list, imu_list = [], [], [], []
+    for i in range(T):
+        Rb = R_wb(ts[i])
+        p = pos(ts[i])
+        R_cw_list.append(Rb.T)
+        t_cw_list.append(-Rb.T @ p)
+        v_list.append(vel(ts[i]))
+        if i == 0:
+            imu_list.append(np.zeros((0, 7), np.float64))
+            continue
+        # Samples strictly inside (t_{i-1}, t_i], midpoint-stamped.
+        tks = np.arange(ts[i - 1] + dt_imu, ts[i] + 1e-9, dt_imu)
+        rows = []
+        for tk in tks:
+            tm = tk - 0.5 * dt_imu  # the measurement models the midpoint
+            Rb_k = R_wb(tm)
+            w_meas = omega_body(tm) + bg
+            a_meas = Rb_k.T @ (acc(tm) - g_w) + ba
+            if rng is not None:
+                w_meas = w_meas + rng.normal(0, sg, 3)
+                a_meas = a_meas + rng.normal(0, sa, 3)
+            rows.append(np.concatenate([[dt_imu], a_meas, w_meas]))
+        imu_list.append(np.asarray(rows, np.float64).reshape(-1, 7))
+    return dict(
+        R_cw=np.stack(R_cw_list).astype(np.float32),
+        t_cw=np.stack(t_cw_list).astype(np.float32),
+        imu=imu_list,
+        vel_w=np.stack(v_list).astype(np.float32),
+        gravity_w=g_w.astype(np.float32),
+        bias=np.concatenate([bg, ba]).astype(np.float32),
+        timestamps=ts,
+    )
+
+
 def stereo_right_pose(R_cw, t_cw, baseline):
     """Pose of the right camera of a rectified rig: translated `baseline`
     along the left camera's +x axis, so pc_right = pc_left - [b, 0, 0]."""

@@ -108,6 +108,26 @@ def left_jacobian_so3(w):
     return _eye_like(W) + b[..., None, None] * W + c[..., None, None] * W2
 
 
+def right_jacobian_so3(w):
+    """Right Jacobian J_r(w) = J_l(-w) (ImuTypes.cc RightJacobianSO3)."""
+    return left_jacobian_so3(-w)
+
+
+def right_jacobian_inv_so3(w):
+    """Inverse right Jacobian (InverseRightJacobianSO3): the coefficient of
+    W is +1/2, of W^2 1/th^2 - (1 + cos th) / (2 th sin th)."""
+    th, th2 = _theta(w)
+    small = th2 < _EPS
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + th2 / 720.0,
+        1.0 / torch.clamp(th2, min=_EPS * _EPS)
+        - (1.0 + torch.cos(th)) / torch.clamp(2.0 * th * torch.sin(th),
+                                              min=_EPS))
+    W = hat(w)
+    W2 = W @ W
+    return _eye_like(W) + 0.5 * W + cot_term[..., None, None] * W2
+
+
 def normalize_rotation(R):
     """Project (..., 3, 3) onto SO(3) via SVD, flipping the last singular
     direction of a reflection."""

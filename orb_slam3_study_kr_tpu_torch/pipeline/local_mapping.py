@@ -1,8 +1,8 @@
 """Local mapping: triangulation of new landmarks, duplicate fusion, recent-
 landmark culling, windowed bundle adjustment and keyframe culling.
 
-Counterpart of ``orb_slam3_study_kr_tpu/pipeline/local_mapping.py``,
-visual only: ``run_once`` drains the keyframe queue — MapPointCulling,
+Counterpart of ``orb_slam3_study_kr_tpu/pipeline/local_mapping.py``:
+``run_once`` drains the keyframe queue — MapPointCulling,
 CreateNewMapPoints (all neighbours in one batched call), SearchInNeighbors
 fusion (all neighbours in one K2 launch), local BA and KeyFrameCulling —
 with the reference's acceptance gates.  It runs in line on the tracker's
@@ -11,7 +11,10 @@ Numpy snapshots are taken under the map lock; device work runs outside it.
 With ``cfg.bf > 0`` local BA carries the keyframes' stereo rows and culls
 each observation at its own chi2 gate (7.815 stereo, 5.991 mono).  After an
 Atlas merge ``welding_ba`` runs the same local BA over an explicit window
-spanning both sides of the seam.
+spanning both sides of the seam.  In an inertial session the inertial
+local BA (``inertial_ba``) replaces the visual one once the map is
+IMU-initialized, and keyframe culling keeps the temporal IMU chain's gaps
+bounded.
 """
 
 import contextlib
@@ -55,6 +58,18 @@ class LocalMapper:
     ba_iters: int = 8
     enable_kf_culling: bool = True
     kf_redundancy_th: float = 0.9
+    # Inertial sessions: a keyframe is culled only where the temporal gap
+    # it leaves between its neighbours stays below 0.5 s until the final
+    # inertial refinement (imu_ba2) has run, 3 s after; the IMU intervals
+    # are rebuilt from the raw log by timestamp, so an erased keyframe's
+    # intervals merge by themselves.
+    inertial_mode: bool = False
+    inertial_max_gap_s: float = 3.0
+    inertial_max_gap_early_s: float = 0.5
+    # LocalInertialBA entry point (ImuMixin.local_inertial_ba): with the
+    # map IMU-initialized it replaces the visual local BA, which runs
+    # instead when it returns False.
+    inertial_ba: "callable" = None
     on_kf_culled: "callable" = None
     timers: object = None
     recent: list = field(default_factory=list)
@@ -89,8 +104,13 @@ class LocalMapper:
         with stage("mapping/fuse"):
             self._fuse_neighbors(kf)
         if m.n_kf >= 3:
-            with stage("mapping/local_ba"):
-                self._local_ba(kf)
+            ok = False
+            if self.inertial_ba is not None and m.imu_initialized:
+                with stage("mapping/local_inertial_ba"), m.lock:
+                    ok = self.inertial_ba(kf)
+            if not ok:
+                with stage("mapping/local_ba"):
+                    self._local_ba(kf)
         if self.enable_kf_culling and m.n_kf >= 5:
             with stage("mapping/cull_kf"), m.lock:
                 self._cull_keyframes(kf)
@@ -323,6 +343,8 @@ class LocalMapper:
             c = int(c)
             if c <= 1 or c == kf or not m.kf_valid[c]:
                 continue
+            if self.inertial_mode and not self._inertial_cullable(c):
+                continue
             kp = np.nonzero(m.kf_kp_valid[c] & (m.kf_kp_lm[c] != NO_LM))[0]
             lms = m.kf_kp_lm[c, kp]
             live = m.lm_valid[lms]
@@ -351,6 +373,22 @@ class LocalMapper:
             self.stats["n_kf_culled"] += 1
             if self.on_kf_culled is not None:
                 self.on_kf_culled(c)
+
+    def _inertial_cullable(self, c: int) -> bool:
+        """Erasing c must not stretch the temporal IMU chain beyond the gap
+        bound (its previous and next keyframes by timestamp are welded);
+        the chain's endpoints are never culled."""
+        m = self.map
+        kfs = np.nonzero(m.kf_valid)[0]
+        ts = m.kf_timestamp[kfs]
+        order = np.argsort(ts, kind="stable")
+        kfs, ts = kfs[order], ts[order]
+        i = int(np.nonzero(kfs == c)[0][0])
+        if i == 0 or i == kfs.size - 1:
+            return False
+        bound = (self.inertial_max_gap_s if m.imu_ba2
+                 else self.inertial_max_gap_early_s)
+        return (ts[i + 1] - ts[i - 1]) < bound
 
     # ------------------------------------------------------------------
     def _local_ba(self, kf: int, window=None):

@@ -87,7 +87,7 @@ class LoopCloser:
     def __post_init__(self):
         self.device = resolve_device(self.cfg.device, "TrackerConfig.device")
         if self._gen is None:
-            self._gen = torch.Generator(device=self.device).manual_seed(17)
+            self._gen = torch.Generator().manual_seed(17)
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -257,7 +257,7 @@ class LoopCloser:
     def _uniforms(self, iters, n):
         if self.uniforms_fn is not None:
             return self._t(self.uniforms_fn(iters, n), torch.float32)
-        return torch.rand((iters, n), generator=self._gen, device=self.device)
+        return torch.rand((iters, n), generator=self._gen).to(self.device)
 
     # ------------------------------------------------------------------
     def _verify_cascade(self, kf: int, cand: int):

@@ -68,7 +68,7 @@ class MapMerger:
     def __post_init__(self):
         self.device = resolve_device(self.cfg.device, "TrackerConfig.device")
         if self._gen is None:
-            self._gen = torch.Generator(device=self.device).manual_seed(23)
+            self._gen = torch.Generator().manual_seed(23)
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -76,7 +76,7 @@ class MapMerger:
     def _uniforms(self, iters, n):
         if self.uniforms_fn is not None:
             return self._t(self.uniforms_fn(iters, n), torch.float32)
-        return torch.rand((iters, n), generator=self._gen, device=self.device)
+        return torch.rand((iters, n), generator=self._gen).to(self.device)
 
     # ------------------------------------------------------------------
     def verify(self, mA: MapState, kf: int, mB: MapState, cand: int,

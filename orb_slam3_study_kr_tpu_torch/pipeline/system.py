@@ -1,15 +1,18 @@
-"""Public session API: monocular, rectified stereo and RGB-D.
+"""Public session API: monocular, rectified stereo and RGB-D, each also
+with an IMU.
 
 Counterpart of ``orb_slam3_study_kr_tpu/pipeline/system.py``
 (``SystemConfig``, ``SlamSystem``): builds the map and the pipeline stages,
 routes frames through ``track_monocular``, ``track_stereo`` or
-``track_rgbd``, bootstraps the vocabulary and the keyframe database, runs
-loop closing per keyframe, relocalizes lost frames by BoW + RANSAC PnP with
-the widening re-search cascade, handles sustained tracking loss (reset or
-new map) and the timestamp-jump guard, welds the active map into a stored
-map it recognises (``pipeline/map_merging.py`` and the welding BA), saves
-and loads the Atlas (``save_atlas`` / ``load_atlas``, the reference's npz
-layout) and saves trajectories.  With
+``track_rgbd`` (with ``imu=`` rows for the ``-inertial`` sensors, the
+bad-IMU watchdog after each such frame), bootstraps the vocabulary and the
+keyframe database, runs loop closing per keyframe, relocalizes lost frames
+by BoW + RANSAC PnP with the widening re-search cascade, handles sustained
+tracking loss (reset or new map) and the timestamp-jump guard, welds the
+active map into a stored map it recognises (``pipeline/map_merging.py`` and
+the welding BA, inertial on IMU-initialized maps), saves and loads the
+Atlas (``save_atlas`` / ``load_atlas``, the reference's npz layout, the
+inertial session state included) and saves trajectories.  With
 ``async_mapping=True`` mapping and loop closing run on a background worker
 (``pipeline/async_mapping.py``) whose events the tracker thread applies at
 the next frame boundary; ``flush()`` waits for it and ``shutdown()`` stops
@@ -21,7 +24,9 @@ The relocalization PnP draws come from ``uniforms_fn(iters, n)`` when given
 torch.Generator seeded 99, the reference's session PRNGKey.  The loop
 closer's and the map merger's Sim3 RANSAC draws come from their own
 ``uniforms_fn`` (``loop_uniforms_fn``, ``merge_uniforms_fn``) or their own
-seeded generators.
+seeded generators.  Every such generator lives on the host and its draws
+move to the device, so that a seed gives the same session on the card as
+on the CPU (as a jax.random key does on every backend).
 """
 
 import dataclasses
@@ -36,9 +41,12 @@ from orb_slam3_study_kr_tpu_torch.bow import (KeyframeDatabase, load_dbow2_text,
 from orb_slam3_study_kr_tpu_torch.bow.vocabulary import (vocabulary_arrays,
                                                          vocabulary_checksum,
                                                          vocabulary_from_arrays)
+from orb_slam3_study_kr_tpu_torch.imu.preintegration import ImuCalib
 from orb_slam3_study_kr_tpu_torch.ops.track_match import match_by_descriptor
 from orb_slam3_study_kr_tpu_torch.pipeline.async_mapping import AsyncMapping
 from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
+from orb_slam3_study_kr_tpu_torch.pipeline.inertial_tracking import (
+    InertialTracker, RgbdInertialTracker, StereoInertialTracker)
 from orb_slam3_study_kr_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam3_study_kr_tpu_torch.pipeline.loop_closing import LoopCloser
 from orb_slam3_study_kr_tpu_torch.pipeline.map_merging import MapMerger
@@ -51,15 +59,17 @@ from orb_slam3_study_kr_tpu_torch.solvers.pnp import ransac_pnp
 from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
 PNP_ITERS = 256
-SENSORS = ("mono", "stereo", "rgbd")
+SENSORS = ("mono", "stereo", "rgbd", "mono-inertial", "stereo-inertial",
+           "rgbd-inertial")
+NO_IMU = np.zeros((0, 7), np.float32)
 WELD_WINDOW = 25      # keyframes per side of the welding BA (numTemporalKFs)
 
 
 @dataclass
 class SystemConfig:
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
-    # "mono" | "stereo" (rectified) | "rgbd"; the "-inertial" sensors are
-    # not ported yet (ROADMAP item 15).
+    # "mono" | "stereo" (rectified) | "rgbd" | "mono-inertial" |
+    # "stereo-inertial" | "rgbd-inertial"
     sensor: str = "mono"
     baseline: float = 0.11      # stereo baseline [m]; bf = fx * baseline
     depth_factor: float = 40.0  # close-point threshold = factor * baseline
@@ -67,6 +77,16 @@ class SystemConfig:
     stereo_R_rl: tuple = None
     stereo_t_rl: tuple = None
     tracker_right: TrackerConfig = None
+    # IMU (the inertial sensors only): noise densities, bias random walk,
+    # rate, body <- camera extrinsic and the t1/t2/t3 init schedule.
+    imu_noise_gyro: float = 1.7e-4
+    imu_noise_acc: float = 2e-3
+    imu_walk_gyro: float = 1.9e-5
+    imu_walk_acc: float = 3e-3
+    imu_freq: float = 200.0
+    imu_R_bc: tuple = None   # 3x3 body <- camera rotation (None = identity)
+    imu_t_bc: tuple = None
+    imu_init_times: tuple = (2.0, 5.0, 15.0)
     max_kf: int = 300
     max_lm: int = 80000
     enable_loop_closing: bool = True
@@ -93,10 +113,6 @@ class SystemConfig:
             raise NotImplementedError(
                 "SystemConfig.ba_devices > 1: the multi-device global BA is "
                 "not ported yet (ROADMAP item 19)")
-        if self.sensor.endswith("-inertial"):
-            raise NotImplementedError(
-                f"SystemConfig.sensor={self.sensor!r}: the inertial sensors "
-                "are not ported yet (ROADMAP item 15)")
         if self.sensor not in SENSORS:
             raise ValueError(f"SystemConfig.sensor={self.sensor!r}: expected "
                              f"one of {SENSORS}")
@@ -116,7 +132,7 @@ def _np(t):
 
 
 class SlamSystem:
-    """SLAM session (System::TrackMonocular path)."""
+    """SLAM session (System::TrackMonocular / TrackStereo / TrackRGBD)."""
 
     def __init__(self, cfg: SystemConfig = None, ransac_sets_fn=None,
                  uniforms_fn=None, loop_uniforms_fn=None,
@@ -125,7 +141,7 @@ class SlamSystem:
         self.cfg.check_supported()
         self.device = resolve_device(self.cfg.device, "SystemConfig.device")
         bf = self.cfg.tracker.bf
-        if self.cfg.sensor in ("stereo", "rgbd") and bf == 0.0:
+        if not self.cfg.sensor.startswith("mono") and bf == 0.0:
             bf = self.cfg.tracker.fx * self.cfg.baseline
         # The tracker, the mapper and the loop closer share this config.
         self.cfg.tracker = dataclasses.replace(self.cfg.tracker, bf=bf,
@@ -133,7 +149,7 @@ class SlamSystem:
         self.ransac_sets_fn = ransac_sets_fn
         self.uniforms_fn = uniforms_fn
         self.loop_uniforms_fn = loop_uniforms_fn
-        self._gen = torch.Generator(device=self.device).manual_seed(99)
+        self._gen = torch.Generator().manual_seed(99)
         self.atlas = Atlas()
         self.voc = None
         self.db = None
@@ -159,11 +175,7 @@ class SlamSystem:
             max_kp=self.cfg.tracker.orb_config.total_slots,
             max_lm=self.cfg.max_lm)
         old_tracker = getattr(self, "tracker", None)
-        self.local_mapper = LocalMapper(cfg=self.cfg.tracker, map=m,
-                                        on_kf_culled=self._on_kf_culled)
-        self.tracker = self._build_tracker(m)
-        self.local_mapper.timers = self.tracker.timers
-        self.tracker.async_map = self.async_map
+        self._build_stages(m)
         if old_tracker is not None:
             # The relative-pose log spans map spawns; frame ids stay monotonic.
             self.tracker.trajectory = old_tracker.trajectory
@@ -176,20 +188,51 @@ class SlamSystem:
             self.map_dbs[m.map_id] = self.db
             self.loop_closer = self._loop_closer(m, self.db)
 
+    @property
+    def inertial(self):
+        return self.cfg.sensor.endswith("-inertial")
+
+    def _build_stages(self, m):
+        """The mapper and the tracker of map m; in an inertial session the
+        inertial local BA replaces the visual one once the map is
+        IMU-initialized."""
+        self.local_mapper = LocalMapper(cfg=self.cfg.tracker, map=m,
+                                        inertial_mode=self.inertial,
+                                        on_kf_culled=self._on_kf_culled)
+        self.tracker = self._build_tracker(m)
+        self.local_mapper.timers = self.tracker.timers
+        self.tracker.async_map = self.async_map
+        if self.inertial:
+            self.local_mapper.inertial_ba = self.tracker.local_inertial_ba
+
     def _loop_closer(self, m, db):
         return LoopCloser(cfg=self.cfg.tracker, map=m, db=db,
+                          inertial=self.inertial,
                           uniforms_fn=self.loop_uniforms_fn)
 
     def _build_tracker(self, m):
+        c = self.cfg
         kw = dict(local_mapper=self.local_mapper,
                   loop_closer=self._on_keyframe_for_loops,
                   relocalizer=self._relocalize,
                   on_tracking_lost=self._on_tracking_lost,
                   ransac_sets_fn=self.ransac_sets_fn)
-        if self.cfg.sensor == "mono":
-            return MonoTracker(self.cfg.tracker, m, **kw)
-        return StereoTracker(self.cfg.tracker, m, baseline=self.cfg.baseline,
-                             depth_factor=self.cfg.depth_factor, **kw)
+        stereo_kw = dict(baseline=c.baseline, depth_factor=c.depth_factor)
+        if self.inertial:
+            kw.update(calib=ImuCalib.make(
+                noise_gyro=c.imu_noise_gyro, noise_acc=c.imu_noise_acc,
+                walk_gyro=c.imu_walk_gyro, walk_acc=c.imu_walk_acc,
+                freq=c.imu_freq, R_bc=c.imu_R_bc, t_bc=c.imu_t_bc,
+                device=self.device), imu_init_times=c.imu_init_times)
+        if c.sensor == "mono":
+            return MonoTracker(c.tracker, m, **kw)
+        if c.sensor == "mono-inertial":
+            return InertialTracker(c.tracker, m, **kw)
+        if c.sensor == "rgbd-inertial":
+            return RgbdInertialTracker(c.tracker, m, **stereo_kw, **kw)
+        if c.sensor == "stereo-inertial":
+            return StereoInertialTracker(c.tracker, m, **stereo_kw, **kw)
+        return StereoTracker(c.tracker, m, **stereo_kw, **kw)
 
     # ------------------------------------------------------------------
     def _ensure_vocabulary(self):
@@ -328,16 +371,20 @@ class SlamSystem:
 
         # Welding BA (MergeLocal's welding window): the re-entry keyframe's
         # neighbourhood and the matched keyframe's, every far-side observer
-        # fixed.  The inertial weld (the VI seam solve, then fix_b=True)
-        # waits for the inertial sensors (ROADMAP item 15); check_supported
-        # refuses them, so the target side is always optimised here.
+        # fixed.  On an IMU-initialized merged map the inertial seam solve
+        # (local inertial BA) runs first and the welding window then holds
+        # the target side rigid, keeping its gravity-consistent structure.
         kf_new = tr.ref_kf
         nb_a, _ = mB.covisibility(kf_new, min_shared=1)
         window_a = np.concatenate([[kf_new], nb_a[: WELD_WINDOW - 1]])
         nb_b, _ = mB.covisibility(int(res.target_kf), min_shared=1)
         window_b = np.concatenate([[res.target_kf], nb_b[: WELD_WINDOW - 1]])
+        inertial_weld = self.inertial and mB.imu_initialized
         with tr.timers.stage("atlas/welding_ba"):
-            self.local_mapper.welding_ba(window_a, window_b, fix_b=False)
+            if inertial_weld:
+                tr.local_inertial_ba(tr.ref_kf)
+            self.local_mapper.welding_ba(window_a, window_b,
+                                         fix_b=inertial_weld)
 
     # ------------------------------------------------------------------
     def _on_kf_culled(self, kf: int):
@@ -360,8 +407,7 @@ class SlamSystem:
     def _pnp_uniforms(self, n):
         if self.uniforms_fn is not None:
             return self._t(self.uniforms_fn(PNP_ITERS, n), torch.float32)
-        return torch.rand((PNP_ITERS, n), generator=self._gen,
-                          device=self.device)
+        return torch.rand((PNP_ITERS, n), generator=self._gen).to(self.device)
 
     def _relocalize(self, frame) -> bool:
         """BoW candidates + RANSAC PnP + the reference's widening
@@ -410,6 +456,8 @@ class SlamSystem:
             n_good = tr._optimize_frame_pose(frame, frame.R_cw, frame.t_cw)
             if n_good < self.RELOC_ACCEPT and kf_lms.size >= 3:
                 # Wide guided re-search around the optimized pose.
+                self.sys_stats["n_reloc_research"] = (
+                    self.sys_stats.get("n_reloc_research", 0) + 1)
                 matched, _, _ = tr._match_against_landmarks(
                     frame, kf_lms, frame.R_cw, frame.t_cw, th=10.0,
                     wide_gates=True)
@@ -419,6 +467,8 @@ class SlamSystem:
                 n_good = tr._optimize_frame_pose(frame, frame.R_cw, frame.t_cw)
                 if self.RELOC_RETRY_MIN < n_good < self.RELOC_ACCEPT:
                     # Narrow final pass with the twice-refined pose.
+                    self.sys_stats["n_reloc_narrow"] = (
+                        self.sys_stats.get("n_reloc_narrow", 0) + 1)
                     matched, _, _ = tr._match_against_landmarks(
                         frame, kf_lms, frame.R_cw, frame.t_cw, th=3.0,
                         wide_gates=True)
@@ -462,6 +512,7 @@ class SlamSystem:
         self._new_active_map()
 
     MAX_TS_GAP = 1.0
+    BAD_IMU_KFS = 20     # keyframes without IMU init => bad-IMU reset
 
     def _check_timestamp(self, timestamp) -> None:
         """A backward step or a forward gap > MAX_TS_GAP breaks the stream:
@@ -481,7 +532,28 @@ class SlamSystem:
                 tr.velocity = None
                 tr.state = TrackState.RECENTLY_LOST
                 tr.last_ok_ts = timestamp   # fresh grace period
+                if self.inertial:
+                    tr._pre_frame = None
+                    tr._imu_log = []
                 return
+            self._on_tracking_lost()
+
+    def _check_bad_imu(self, frame) -> None:
+        """Bad-IMU watchdog: a map that keeps failing IMU initialization
+        long past the point it should have succeeded has an unobservable
+        scale; it is reset rather than left to grow unaligned."""
+        if not self.inertial:
+            return
+        m = self.atlas.active_map
+        tr = self.tracker
+        if m.imu_initialized or tr.state != TrackState.OK:
+            return
+        first = tr._first_kf_ts
+        if first is None:
+            return
+        if m.n_kf >= self.BAD_IMU_KFS and frame.timestamp - first > 10.0:
+            self.sys_stats["n_bad_imu_resets"] = (
+                self.sys_stats.get("n_bad_imu_resets", 0) + 1)
             self._on_tracking_lost()
 
     def _drain_async_events(self):
@@ -527,7 +599,8 @@ class SlamSystem:
     def _timed(self, process, timestamp, *args):
         """One frame through the tracker: the worker's events first, the
         timestamp guard, then the frame's wall time, which ends when this
-        thread's stream is done (not the worker's)."""
+        thread's stream is done (not the worker's); then the bad-IMU
+        watchdog of an inertial session."""
         self._drain_async_events()
         self._check_timestamp(timestamp)
         t0 = time.perf_counter()
@@ -535,23 +608,38 @@ class SlamSystem:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         self.timings.append(time.perf_counter() - t0)
+        self._check_bad_imu(frame)
         return frame
 
-    def track_monocular(self, img, timestamp):
+    def _entry(self, visual, inertial, imu):
+        """The tracker's entry point, looked up when the frame runs (the
+        timestamp guard may have spawned a map and its tracker); an
+        inertial sensor's takes the frame's IMU rows."""
+        if not self.inertial:
+            return lambda *a: getattr(self.tracker, visual)(*a)
+        rows = NO_IMU if imu is None else imu
+        return lambda *a: getattr(self.tracker, inertial)(*a, rows)
+
+    def track_monocular(self, img, timestamp, imu=None):
         """System::TrackMonocular: one image (numpy uint8/float32 array or a
-        tensor) at `timestamp` seconds.  Returns the Frame."""
-        return self._timed(self.tracker.process, timestamp, img)
+        tensor) at `timestamp` seconds; for mono-inertial, imu = the (M, 7)
+        rows [dt, ax ay az, gx gy gz] covering (t_prev, t].  Returns the
+        Frame."""
+        return self._timed(self._entry("process", "process_inertial", imu),
+                           timestamp, img)
 
-    def track_stereo(self, img_left, img_right, timestamp):
-        """System::TrackStereo: a rectified left/right pair."""
-        return self._timed(self.tracker.process_stereo, timestamp, img_left,
-                           img_right)
+    def track_stereo(self, img_left, img_right, timestamp, imu=None):
+        """System::TrackStereo: a rectified left/right pair (and the IMU
+        rows for stereo-inertial)."""
+        return self._timed(self._entry("process_stereo",
+                                       "process_stereo_inertial", imu),
+                           timestamp, img_left, img_right)
 
-    def track_rgbd(self, img, depth_map, timestamp):
+    def track_rgbd(self, img, depth_map, timestamp, imu=None):
         """System::TrackRGBD: an image and its registered metric depth map
-        (values <= 0 = no depth)."""
-        return self._timed(self.tracker.process_rgbd, timestamp, img,
-                           depth_map)
+        (values <= 0 = no depth), and the IMU rows for rgbd-inertial."""
+        return self._timed(self._entry("process_rgbd", "process_rgbd_inertial",
+                                       imu), timestamp, img, depth_map)
 
     def flush(self):
         """Wait for the background worker to drain and apply its events (a
@@ -608,9 +696,10 @@ class SlamSystem:
     def save_atlas(self, path):
         """Whole-session checkpoint (System::SaveAtlas): every map's tables
         (``map{i}/<field>``, ``map{i}/scalars``), the vocabulary with its
-        checksum (``voc/*``, ``voc/md5``) and the active map's loop edges.
-        The inertial session state (``imu/*``) waits for the inertial
-        sensors (ROADMAP item 15)."""
+        checksum (``voc/*``, ``voc/md5``), the active map's loop edges and,
+        in an inertial session, the tracker's IMU state (``imu/*``: bias,
+        stage, the keyframe interval chain and the raw log), so that a
+        reloaded session continues IMU-initialized."""
         self.flush()
         payload = {"n_maps": np.int64(len(self.atlas.maps)),
                    "active": np.int64(self.atlas.active)}
@@ -630,7 +719,34 @@ class SlamSystem:
         if self.loop_closer is not None and self.loop_closer.loop_edges:
             payload["loop_edges"] = np.asarray(self.loop_closer.loop_edges,
                                                np.int64)
+        if self.inertial:
+            payload.update(self._imu_payload())
         np.savez_compressed(path, **payload)
+
+    def _imu_payload(self):
+        tr = self.tracker
+        out = {"imu/bias": np.asarray(tr.bias, np.float32),
+               "imu/stage": np.int64(tr.imu_stage)}
+
+        def ragged(name, keys, chunks):
+            chunks = [np.asarray(c, np.float32).reshape(-1, 7) for c in chunks]
+            offs = np.cumsum([0] + [c.shape[0] for c in chunks])
+            out[f"imu/{name}_rows"] = (np.concatenate(chunks) if chunks
+                                       else np.zeros((0, 7), np.float32))
+            out[f"imu/{name}_offs"] = offs.astype(np.int64)
+            return keys
+
+        if tr.kf_imu:
+            kf_ids = np.asarray(sorted(tr.kf_imu), np.int64)
+            out["imu/chain_kf"] = ragged("chain", kf_ids,
+                                         [tr.kf_imu[k][1] for k in kf_ids])
+            out["imu/chain_prev"] = np.asarray([tr.kf_imu[k][0]
+                                                for k in kf_ids], np.int64)
+        if tr._imu_log:
+            out["imu/log_ts"] = ragged(
+                "log", np.asarray([t for t, _ in tr._imu_log], np.float64),
+                [r for _, r in tr._imu_log])
+        return out
 
     def load_atlas(self, path):
         """Rebuild the Atlas from a checkpoint; the active map resumes by
@@ -657,13 +773,9 @@ class SlamSystem:
             self.atlas.maps.append(m)
         self.atlas.active = int(data["active"])
         m = self.atlas.active_map
-        self.local_mapper = LocalMapper(cfg=self.cfg.tracker, map=m,
-                                        on_kf_culled=self._on_kf_culled)
-        self.tracker = self._build_tracker(m)
-        self.local_mapper.timers = self.tracker.timers
-        self.tracker.async_map = self.async_map
-        # The inertial state (_restore_imu_state, imu/* keys) waits for the
-        # inertial sensors (ROADMAP item 15).
+        self._build_stages(m)
+        if self.inertial:
+            self._restore_imu_state(data)
         self.tracker.state = (TrackState.NOT_INITIALIZED if m.n_kf == 0
                               else TrackState.RECENTLY_LOST)
         if not m.n_kf:
@@ -691,6 +803,23 @@ class SlamSystem:
         lf.t_cw = m.kf_t[ref].copy()
         lf.pose_ok = True
         self.tracker.last_frame = lf
+
+    def _restore_imu_state(self, data):
+        """The tracker's inertial state from the checkpoint's imu/* keys."""
+        tr = self.tracker
+        if "imu/bias" in data:
+            tr.bias = data["imu/bias"].copy()
+        if "imu/stage" in data:
+            tr.imu_stage = int(data["imu/stage"])
+        if "imu/chain_kf" in data:
+            prev, rows, offs = (data[f"imu/chain_{k}"]
+                                for k in ("prev", "rows", "offs"))
+            tr.kf_imu = {int(k): (int(prev[i]), rows[offs[i]:offs[i + 1]].copy())
+                         for i, k in enumerate(data["imu/chain_kf"])}
+        if "imu/log_ts" in data:
+            rows, offs = data["imu/log_rows"], data["imu/log_offs"]
+            tr._imu_log = [(float(t), rows[offs[i]:offs[i + 1]].copy())
+                           for i, t in enumerate(data["imu/log_ts"])]
 
     def _restore_vocabulary(self, data):
         """Vocabulary, database and loop closer from the checkpoint's

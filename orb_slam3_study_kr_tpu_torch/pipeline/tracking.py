@@ -7,7 +7,12 @@ initialization, the whole-frame fused slice (flow anchor + motion model +
 local-map rounds), the split fallback (motion model, reference keyframe,
 local map), the keyframe decision, local mapping and the loop-closing
 callback per keyframe (in line, or handed to the background worker of
-``pipeline/async_mapping.py``), and localization-only mode.  With
+``pipeline/async_mapping.py``), and localization-only mode.  The split
+rounds (flow anchor, motion-model match, two local-map match <-> solve
+rounds, one K2 launch per match) replace the fused ones with
+``fused_rounds=False`` and whenever a subclass solves the frame pose its
+own way (``_custom_pose_opt_active``: the inertial trackers once the IMU
+is initialized).  With
 ``cfg.bf > 0`` (stereo and RGB-D, ``pipeline/stereo_tracking.py``) every
 pose solve gets the frame's right coordinates.  Heavy compute runs on
 ``cfg.device``; this file moves indices around in numpy.
@@ -45,7 +50,6 @@ class TrackState(enum.Enum):
 _NOT_PORTED = {
     "camera_model": ("pinhole", "fisheye (ROADMAP item 16)"),
     "klt_refine": (True, "the KLT-off tracker variant (ROADMAP item 12 knobs)"),
-    "fused_rounds": (True, "the unfused split rounds (ROADMAP item 12 knobs)"),
     "refkf_anchor": (False, "refkf_anchor (ROADMAP item 12 knobs)"),
     "patch_zncc_min": (-1.0, "patch_zncc_min > -1 (ROADMAP item 12 knobs)"),
 }
@@ -189,8 +193,9 @@ class MonoTracker:
 
     ``ransac_sets_fn(mask_np, iters) -> (idx_h, idx_f)`` optionally supplies
     the two-view RANSAC minimal sets (tests reproduce the reference's
-    jax.random key chain with it); by default they come from a
-    torch.Generator seeded with ``cfg.seed``."""
+    jax.random key chain with it); by default they come from a host
+    torch.Generator seeded with ``cfg.seed``, so that a session draws the
+    same sets on the card as on the CPU."""
 
     def __init__(self, cfg: TrackerConfig, slam_map: MapState, local_mapper=None,
                  loop_closer=None, relocalizer=None, on_tracking_lost=None,
@@ -217,7 +222,7 @@ class MonoTracker:
         self.trajectory = []
         self.only_tracking = False  # localization mode: no map mutation
         self._speed_hist = []
-        self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self._gen = torch.Generator().manual_seed(cfg.seed)
         self.stats = {"n_frames": 0, "n_kf": 0, "track_fail": 0,
                       "mm_fail": 0, "refkf_fail": 0, "local_fail": 0}
         self.timers = StageTimers()
@@ -415,7 +420,8 @@ class MonoTracker:
         ok = False
         n_inliers = -1
         fused_frame = False
-        if cfg.fused_frame and self.velocity is not None and self.last_frame.pose_ok:
+        if (cfg.fused_frame and self.velocity is not None
+                and self.last_frame.pose_ok and self._use_fused_rounds()):
             n_inliers = self._track_fused_frame(frame)
             if n_inliers is not None and n_inliers >= cfg.min_local_inliers:
                 ok = True
@@ -629,12 +635,50 @@ class MonoTracker:
         frame.kp_lm = np.where(inl, frame.kp_lm, NO_LM).astype(np.int32)
         return int(inl.sum())
 
+    def _flow_anchor_matches(self, frame: Frame):
+        """Pose-free association: windowed descriptor matching centred at
+        each bound feature's position in the last frame (image continuity),
+        not at its pose-projected position, then the KLT verification.  The
+        fused rounds run this as their prologue; the split rounds call it
+        before the motion-model match."""
+        cfg, m = self.cfg, self.map
+        lf = self.last_frame
+        if not cfg.flow_anchor or lf is None:
+            return
+        with m.lock:
+            bound = (lf.kp_lm != NO_LM) & lf.valid
+            bound &= m.lm_valid[np.clip(lf.kp_lm, 0, m.max_lm - 1)]
+        if bound.sum() < 3:
+            return
+        idx, ok, _ = matching.search_for_initialization(
+            lf.dev("uv"), lf.dev("desc"), lf.dev("angle"), self._t(bound),
+            frame.dev("uv"), frame.dev("desc"), frame.dev("angle"),
+            frame.dev("valid"), window_radius=cfg.flow_anchor_radius,
+            nn_ratio=0.8)
+        idx, ok = _np(idx), _np(ok)
+        sel = np.nonzero(ok & bound)[0]
+        if sel.size == 0:
+            return
+        # First wins on contested current keypoints.
+        new_kp, first = np.unique(idx[sel], return_index=True)
+        cand = np.full(frame.uv.shape[0], NO_LM, np.int32)
+        cand[new_kp] = lf.kp_lm[sel[first]]
+        cand = self._klt_refine_matches(frame, cand)
+        take = (cand != NO_LM) & (frame.kp_lm == NO_LM)
+        frame.kp_lm = np.where(take, cand, frame.kp_lm).astype(np.int32)
+        self.stats["flow_anchor_matches"] = (
+            self.stats.get("flow_anchor_matches", 0) + int(take.sum()))
+
     def _track_motion_model(self, frame: Frame) -> bool:
         cfg, m = self.cfg, self.map
         R_pred, t_pred = self._predict_pose()
         kp, lms = self.last_frame.bound_obs()
         if lms.size < 3:
             return False
+        use_fused = self._use_fused_rounds()
+        if not use_fused:
+            # The fused round runs the flow anchor as its prologue.
+            self._flow_anchor_matches(frame)
         with m.lock:
             lm_ids = np.unique(lms)
             lm_ids = lm_ids[m.lm_valid[lm_ids]]
@@ -646,10 +690,27 @@ class MonoTracker:
             _, bound_now = frame.bound_obs()
             if bound_now.size:
                 lm_ids = lm_ids[~np.isin(lm_ids, bound_now)]
-        n = self._fused_round_wide(frame, lm_ids, R_pred, t_pred, th=3.0,
-                                   with_flow=True)
-        if n < cfg.min_track_matches:
-            n = self._fused_round_wide(frame, lm_ids, R_pred, t_pred, th=6.0)
+        if use_fused:
+            n = self._fused_round_wide(frame, lm_ids, R_pred, t_pred, th=3.0,
+                                       with_flow=True)
+            if n < cfg.min_track_matches:
+                n = self._fused_round_wide(frame, lm_ids, R_pred, t_pred,
+                                           th=6.0)
+            return n >= cfg.min_track_matches
+        # Split rounds: K2 matches on the host's free keypoints, widened
+        # once, then the frame's pose solve (pose-inertial once the IMU is
+        # initialized).
+        for th in (3.0, 6.0):
+            matched_lm, _, _ = self._match_against_landmarks(
+                frame, lm_ids, R_pred, t_pred, th=th, wide_gates=True)
+            free = frame.kp_lm == NO_LM
+            frame.kp_lm = np.where(free, matched_lm,
+                                   frame.kp_lm).astype(np.int32)
+            if (frame.kp_lm != NO_LM).sum() >= cfg.min_track_matches:
+                break
+        if (frame.kp_lm != NO_LM).sum() < cfg.min_track_matches:
+            return False
+        n = self._optimize_frame_pose(frame, R_pred, t_pred)
         return n >= cfg.min_track_matches
 
     def _track_reference_kf(self, frame: Frame) -> bool:
@@ -716,7 +777,44 @@ class MonoTracker:
             cand = np.concatenate(chunks) if chunks else np.empty(0, np.int32)
             cand = cand[m.lm_valid[cand]]
             cand = cand[~np.isin(cand, lms)]
-        return self._track_local_map_fused(frame, cand)
+        if self._use_fused_rounds():
+            return self._track_local_map_fused(frame, cand)
+        return self._track_local_map_split(frame, cand)
+
+    def _track_local_map_split(self, frame: Frame, cand) -> int:
+        """Two match <-> solve rounds: with the refined pose the search
+        windows re-centre, so true matches the first prediction pushed out
+        of the gates re-enter."""
+        m = self.map
+        self.stats["split_frames"] = self.stats.get("split_frames", 0) + 1
+        matched_lm, visible, used_ids = self._match_against_landmarks(
+            frame, cand, frame.R_cw, frame.t_cw, th=1.0)
+        with m.lock:
+            m.lm_visible[used_ids[visible[: used_ids.size]]] += 1
+        free = frame.kp_lm == NO_LM
+        frame.kp_lm = np.where(free, matched_lm, frame.kp_lm).astype(np.int32)
+        n = self._optimize_frame_pose(frame, frame.R_cw, frame.t_cw)
+        _, lms_now = frame.bound_obs()
+        cand2 = cand[~np.isin(cand, lms_now)]
+        matched2, _, _ = self._match_against_landmarks(
+            frame, cand2, frame.R_cw, frame.t_cw, th=1.0)
+        add = (frame.kp_lm == NO_LM) & (matched2 != NO_LM)
+        if add.any():
+            frame.kp_lm = np.where(add, matched2, frame.kp_lm).astype(np.int32)
+            n = self._optimize_frame_pose(frame, frame.R_cw, frame.t_cw)
+        with m.lock:
+            _, lms_after = frame.bound_obs()
+            m.lm_found[lms_after] += 1
+        return n
+
+    def _custom_pose_opt_active(self) -> bool:
+        """True when a subclass replaces the visual pose solve with its own
+        (the pose-inertial solves after IMU init): the fused rounds' visual
+        Gauss-Newton must then give way to the split rounds."""
+        return False
+
+    def _use_fused_rounds(self) -> bool:
+        return self.cfg.fused_rounds and not self._custom_pose_opt_active()
 
     def _build_lm_block(self, cand, L, wide_gates=False, R_pred=None,
                         t_pred=None):

@@ -295,3 +295,75 @@ def test_merge_verify_on_the_card_matches_the_cpu(dev):
         np.testing.assert_allclose(c["R12"], g["R12"], atol=1e-4)
         np.testing.assert_allclose(c["t12"], g["t12"], atol=1e-4)
         assert abs(c["s12"] / g["s12"] - 1.0) < 1e-4
+
+
+def _split_session(n=10):
+    """A short CPU session of the lateral world on the split rounds
+    (fused_rounds=False) and the next rendered image."""
+    from orb_slam3_study_kr_tpu_torch.io import synthetic
+    from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
+    rng = np.random.default_rng(1)
+    world = synthetic.make_textured_world(rng, depth=6.0)
+    R, t = synthetic.lateral_trajectory(18, x_span=0.5, z_span=0.0, y_amp=0.0)
+    slam = SlamSystem(SystemConfig(
+        tracker=TrackerConfig(fps=10, fused_rounds=False),
+        enable_loop_closing=False, device="cpu"))
+    for i in range(n):
+        slam.track_monocular(
+            synthetic.render_textured(world, R[i], t[i], rng=rng), i * 0.1)
+    return slam, synthetic.render_textured(world, R[n], t[n], rng=rng)
+
+
+def test_split_round_on_the_card_matches_the_cpu(dev):
+    """One frame of the split rounds (flow anchor, motion-model match and
+    solve, two local-map match <-> solve rounds) from the same carried state
+    and the same features on the card and on the CPU: identical bindings,
+    the pose within 1e-4, K2 launched on every match on the card and never
+    on the CPU.  The frame carries no pyramid, so the KLT step is skipped in
+    both."""
+    from orb_slam3_study_kr_tpu_torch import convert
+    from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
+    from orb_slam3_study_kr_tpu_torch.pipeline.tracking import (MonoTracker,
+                                                                TrackState)
+    slam, img = _split_session()
+    tr = slam.tracker
+    assert slam.state == TrackState.OK and tr.velocity is not None
+    m, lf = tr.map, tr.last_frame
+    tables = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+              for k, v in vars(m).items()
+              if isinstance(v, (np.ndarray, int, float, bool))}
+    keys = ("uv", "uv_raw", "level", "angle", "response", "desc", "valid",
+            "patch")
+    last = {k: np.array(getattr(lf, k)) for k in keys}
+    last.update(kp_lm=lf.kp_lm.copy(), R_cw=lf.R_cw, t_cw=lf.t_cw,
+                frame_id=lf.frame_id, timestamp=lf.timestamp,
+                ref_kf=lf.ref_kf, pose_ok=True, rel_ref=lf.rel_ref,
+                rel_R=lf.rel_R, rel_t=lf.rel_t)
+    new = tr._extract_frame(img, 1.0)
+    host = {k: np.array(getattr(new, k)) for k in keys}
+    out = {}
+    for d in ("cpu", "cuda"):
+        t2 = MonoTracker(TrackerConfig(fps=10, fused_rounds=False, device=d),
+                         MapState(max_kf=m.max_kf, max_kp=m.max_kp,
+                                  max_lm=m.max_lm))
+        convert.tracker_state_from_numpy(
+            t2, tables, dict(last), tr.velocity, tr.ref_kf, tr._speed_hist,
+            frame_count=new.frame_id)
+        f = Frame(frame_id=new.frame_id, timestamp=1.0, device=d,
+                  **{k: v.copy() for k, v in host.items()})
+        cuda_matching.gated_nn.launches = 0
+        ok = t2._track_motion_model(f)
+        n = t2._track_local_map(f)
+        if d == "cuda":
+            torch.cuda.synchronize()
+        out[d] = (ok, n, f.kp_lm.copy(), f.R_cw, f.t_cw,
+                  cuda_matching.gated_nn.launches,
+                  t2.stats.get("split_frames", 0))
+    (ok_c, n_c, kp_c, R_c, t_c, k2_c, s_c), (ok_g, n_g, kp_g, R_g, t_g, k2_g,
+                                            s_g) = out["cpu"], out["cuda"]
+    assert ok_c and ok_g and n_c > 25 and s_c == s_g == 1
+    assert k2_c == 0 and k2_g >= 3
+    np.testing.assert_array_equal(kp_g, kp_c)
+    assert n_g == n_c
+    np.testing.assert_allclose(R_g, R_c, atol=1e-4)
+    np.testing.assert_allclose(t_g, t_c, atol=1e-4)

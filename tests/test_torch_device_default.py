@@ -14,7 +14,10 @@ from orb_slam3_study_kr_tpu_torch.bow import vocabulary as voc_mod
 from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
 from orb_slam3_study_kr_tpu_torch.pipeline.async_mapping import AsyncMapping
 from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
+from orb_slam3_study_kr_tpu_torch.imu import ImuCalib
 from orb_slam3_study_kr_tpu_torch.pipeline.global_ba import global_bundle_adjustment
+from orb_slam3_study_kr_tpu_torch.pipeline.inertial_tracking import (
+    InertialTracker, RgbdInertialTracker, StereoInertialTracker)
 from orb_slam3_study_kr_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam3_study_kr_tpu_torch.pipeline.loop_closing import LoopCloser
 from orb_slam3_study_kr_tpu_torch.pipeline.map_merging import MapMerger
@@ -75,6 +78,16 @@ BUILDS = {
     "SlamSystem(rgbd)": lambda cfg, tmp: _session(cfg.device, sensor="rgbd"),
     "SlamSystem(async)": lambda cfg, tmp: _session(cfg.device,
                                                   async_mapping=True),
+    "InertialTracker": lambda cfg, tmp: InertialTracker(cfg, _map()),
+    "StereoInertialTracker": lambda cfg, tmp: StereoInertialTracker(cfg, _map()),
+    "RgbdInertialTracker": lambda cfg, tmp: RgbdInertialTracker(cfg, _map()),
+    "ImuCalib": lambda cfg, tmp: ImuCalib.make(device=cfg.device),
+    "SlamSystem(mono-inertial)": lambda cfg, tmp: _session(
+        cfg.device, sensor="mono-inertial"),
+    "SlamSystem(stereo-inertial)": lambda cfg, tmp: _session(
+        cfg.device, sensor="stereo-inertial"),
+    "SlamSystem(rgbd-inertial)": lambda cfg, tmp: _session(
+        cfg.device, sensor="rgbd-inertial"),
     "LocalMapper": lambda cfg, tmp: LocalMapper(cfg=cfg, map=_map()),
     "LoopCloser": lambda cfg, tmp: LoopCloser(cfg=cfg, map=_map(), db=_db()),
     "MapMerger": lambda cfg, tmp: MapMerger(cfg=cfg),
@@ -99,6 +112,7 @@ def test_tracker_config_defaults_to_the_card():
     assert TrackerConfig().device == "cuda"
     assert inspect.signature(Frame).parameters["device"].default == "cuda"
     assert inspect.signature(AsyncMapping).parameters["device"].default == "cuda"
+    assert inspect.signature(ImuCalib.make).parameters["device"].default == "cuda"
     for fn in (voc_mod.train_vocabulary, voc_mod.load_vocabulary,
                voc_mod.load_dbow2_text, voc_mod.vocabulary_from_arrays,
                convert.vocabulary_from_numpy):

@@ -310,6 +310,11 @@ def test_port_imports_no_jax():
             "import orb_slam3_study_kr_tpu_torch.pipeline.async_mapping\n"
             "import orb_slam3_study_kr_tpu_torch.pipeline.map_merging\n"
             "import orb_slam3_study_kr_tpu_torch.io.rectify\n"
+            "import orb_slam3_study_kr_tpu_torch.io.synthetic\n"
+            "import orb_slam3_study_kr_tpu_torch.imu\n"
+            "import orb_slam3_study_kr_tpu_torch.solvers.inertial\n"
+            "import orb_slam3_study_kr_tpu_torch.solvers.inertial_ba\n"
+            "import orb_slam3_study_kr_tpu_torch.pipeline.inertial_tracking\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('orb_slam3_study_kr_tpu.'))\n"
             "assert not bad, bad\n"
@@ -332,18 +337,20 @@ def test_cuda_device_without_cuda_raises():
 
 @pytest.mark.parametrize("kw", [
     dict(enable_loop_closing=True, ba_devices=2),
-    dict(sensor="stereo-inertial"),
-    dict(sensor="rgbd-inertial"),
+    dict(sensor="stereo-inertial", tracker=TrackerConfig(camera_model="kb8")),
+    dict(sensor="rgbd-inertial", tracker=TrackerConfig(patch_zncc_min=0.5)),
     dict(sensor="stereo", tracker=TrackerConfig(camera_model="kb8")),
-    dict(sensor="mono-inertial"),
+    dict(sensor="mono-inertial", tracker=TrackerConfig(klt_refine=False)),
     dict(tracker=TrackerConfig(camera_model="kb8")),
 ], ids=["loop_closing", "stereo_inertial", "rgbd_inertial", "kb8_stereo",
         "mono_inertial", "kb8"])
 def test_unported_routes_raise(kw):
-    """Loop closing, rectified stereo, RGB-D and the async worker are
-    ported; the multi-device global BA (item 19), the inertial sensors
-    (item 15) and the fisheye model and rig (item 16) raise, naming
-    their ROADMAP item."""
+    """Loop closing, rectified stereo, RGB-D, the async worker and the
+    inertial sensors are ported; the multi-device global BA (item 19), the
+    fisheye model and rig (item 16, the KB8 stereo-inertial rig of TUM-VI
+    among them) and the KLT-off and patch-ZNCC tracker knobs (item 12a)
+    raise, naming their ROADMAP item, with an inertial sensor as
+    without."""
     cfg = dict(enable_loop_closing=False, device="cpu")
     cfg.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -411,7 +418,8 @@ def test_config_conversion_reference_only_fields():
     """The table of reference fields the port lacks holds the reference's
     own defaults and, with the port's fields, covers every reference field.
     Such a field converts at its default and raises with any other value,
-    as does a key neither config has."""
+    as does a key neither config has.  The IMU settings are port fields
+    and convert at any value."""
     for jcls, tcls in ((JTrackerConfig, TrackerConfig),
                        (JSystemConfig, SystemConfig)):
         table = convert.REFERENCE_ONLY[tcls.__name__]
@@ -420,9 +428,11 @@ def test_config_conversion_reference_only_fields():
         assert set(ref) - port == set(table), tcls.__name__
         for k, v in table.items():
             assert v == ref[k], k
-    with pytest.raises(ValueError, match="imu_freq"):
-        convert.system_config_from_dict(
-            dataclasses.asdict(JSystemConfig(imu_freq=100.0)), device="cpu")
+    ts = convert.system_config_from_dict(dataclasses.asdict(JSystemConfig(
+        sensor="mono-inertial", imu_freq=100.0, imu_init_times=(1.0, 2.0, 3.0))),
+        device="cpu")
+    assert (ts.sensor, ts.imu_freq, ts.imu_init_times) == (
+        "mono-inertial", 100.0, (1.0, 2.0, 3.0))
     with pytest.raises(ValueError, match="fov_max_deg"):
         convert.tracker_config_from_dict(
             dataclasses.asdict(JTrackerConfig(fov_max_deg=60.0)))

@@ -7,6 +7,10 @@
 - The 30-frame rectified stereo session of
   ``test_stereo_slam_textured_lateral`` (seed 3, baseline 0.11) through
   both packages: the fitted scale and the metric ATE of each.
+- The 60-frame mono-inertial session of ``test_mono_inertial_pipeline``
+  (seed 11) through both packages: the final gyro-bias error that its
+  wall reads, the robust gyro-bias estimate of every IMU-init attempt,
+  the IMU stage and the first init's scale.
 
 Each test prints one ``RECORD`` JSON line with what it measured.  Run with
 ``JAX_PLATFORMS=cpu python -m pytest -q -s -m slow
@@ -124,3 +128,63 @@ def test_stereo_session_scale_record():
         assert r["state"] == "OK" and r["nm"] > 20
         assert r["ate_metric"] < 0.15 and abs(r["scale"] - 1.0) < 0.10
     assert abs(j["scale"] - p["scale"]) < 2e-3, (j["scale"], p["scale"])
+
+
+def _mono_inertial_run(package):
+    """test_mono_inertial_pipeline's session; the gyro-bias error after
+    each robust estimate (one per IMU-init attempt) and each attempt's
+    outcome, scale and median whitened edge norm are recorded."""
+    rng = np.random.default_rng(11)
+    world = synthetic.make_textured_world(rng, depth=6.0)
+    n = 60
+    traj = synthetic.inertial_trajectory(
+        n, fps=10.0, imu_freq=200.0, rng=rng, amp=(0.45, 0.18, 0.0),
+        omega=(1.5, 0.9, 0.0), rot_amp=(0.0, 0.0, 0.0))
+    kw = dict(sensor="mono-inertial", imu_init_times=(2.5, 4.0, 5.0))
+    slam = (JSlamSystem(JSystemConfig(tracker=JTrackerConfig(fps=10), **kw))
+            if package == "jax" else
+            SlamSystem(SystemConfig(tracker=TrackerConfig(fps=10),
+                                    device="cpu", **kw)))
+    tr = slam.tracker
+    true = traj["bias"][:3]
+    trail = []
+    estimate = tr._robust_gyro_bias
+
+    def recording():
+        estimate()
+        trail.append((tr.frame_count,
+                      round(float(np.abs(tr.bias[:3] - true).max()), 6)))
+
+    tr._robust_gyro_bias = recording
+    attempts = []
+    run_init = tr._run_imu_init
+
+    def recording_init(chain, rows, priors, frame, force=False):
+        ok = run_init(chain, rows, priors, frame, force)
+        attempts.append((tr.frame_count, bool(ok), len(chain),
+                         round(float(tr.stats["imu_init_last_s"]), 5),
+                         round(float(np.median(
+                             tr.stats["imu_init_edge_norms"])), 3)))
+        return ok
+
+    tr._run_imu_init = recording_init
+    for i in range(n):
+        slam.track_monocular(
+            synthetic.render_textured(world, traj["R_cw"][i], traj["t_cw"][i],
+                                      rng=rng),
+            traj["timestamps"][i], imu=traj["imu"][i])
+    return dict(state=slam.state.name, imu_stage=tr.imu_stage,
+                imu_init_scale=tr.stats.get("imu_init_scale"),
+                gyro_bias_err=float(np.abs(tr.bias[:3] - true).max()),
+                robust_estimates=trail, init_attempts=attempts)
+
+
+@pytest.mark.slow
+def test_mono_inertial_gyro_bias_record():
+    """Both packages on the same 60 frames: each initializes its IMU and
+    passes the reference's gyro-bias wall (3e-3) on the CPU; the record
+    shows how far each robust estimate lands from the true bias."""
+    j, p = _mono_inertial_run("jax"), _mono_inertial_run("torch")
+    print("RECORD", json.dumps(dict(jax=j, torch=p)))
+    for r in (j, p):
+        assert r["imu_stage"] >= 1 and r["gyro_bias_err"] < 3e-3
