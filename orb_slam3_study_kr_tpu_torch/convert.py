@@ -41,15 +41,12 @@ from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig, TrackS
 
 
 # Fields of the reference configs that the port's configs do not have, with
-# the reference's default values: the fisheye lens limits (ROADMAP item 16).  The reference options the port has but
-# does not run yet (the item 12a tracker knobs, the fisheye stereo rig) are
-# fields of the port's configs, which refuse non-default values when a
-# session is built.
+# the reference's default values (none at present).  The reference options
+# the port has but does not run yet (the item 12a tracker knobs) are fields
+# of the port's configs, which refuse non-default values when a session is
+# built.
 REFERENCE_ONLY = {
-    "TrackerConfig": {
-        "fov_max_deg": 75.0,
-        "fisheye_half_fov_deg": 98.0,
-    },
+    "TrackerConfig": {},
     "SystemConfig": {},
 }
 
@@ -88,10 +85,16 @@ def tracker_config_from_dict(d, **overrides) -> TrackerConfig:
 
 def system_config_from_dict(d, device="cuda", **overrides) -> SystemConfig:
     """Port SystemConfig from the reference SystemConfig's fields (the
-    nested ``tracker`` dict included)."""
+    nested ``tracker`` and ``tracker_right`` dicts included; the fisheye
+    rig's extrinsic as tuples)."""
     kw = _port_kwargs(SystemConfig, {k: v for k, v in d.items()
-                                     if k != "tracker"})
+                                     if k not in ("tracker", "tracker_right")})
     kw["tracker"] = tracker_config_from_dict(d.get("tracker", {}))
+    if d.get("tracker_right") is not None:
+        kw["tracker_right"] = tracker_config_from_dict(d["tracker_right"])
+    for k in ("stereo_R_rl", "stereo_t_rl"):
+        if kw.get(k) is not None:
+            kw[k] = _plain(np.asarray(kw[k]).tolist())
     kw["device"] = device
     kw.update(overrides)
     return SystemConfig(**kw)
@@ -112,7 +115,8 @@ def tracker_state_from_numpy(tracker, map_tables, last_frame, velocity,
       kf_*/lm_* tables and counters such as n_kf, next_lm, change_idx).
     last_frame: dict with the last frame's host arrays (uv, uv_raw, level,
       angle, response, desc, valid, patch), kp_lm, R_cw, t_cw, frame_id,
-      timestamp, ref_kf, pose_ok and optionally rel_ref/rel_R/rel_t.
+      timestamp, ref_kf, pose_ok and optionally rel_ref/rel_R/rel_t and a
+      fisheye stereo frame's stereo_pc (its left-camera points).
     velocity: (R, t) numpy pair or None; speed_hist: list of floats.
     fused_block: the cached fused-frame candidate block as numpy (cand,
       ref_kf, row_of, obs, change_idx, member_idx and the pos, desc, gid,
@@ -132,6 +136,8 @@ def tracker_state_from_numpy(tracker, map_tables, last_frame, velocity,
                   ref_kf=int(lf.get("ref_kf", -1)),
                   pose_ok=bool(lf.get("pose_ok", True)),
                   device=tracker.device, **host)
+    if lf.get("stereo_pc") is not None:
+        frame.stereo_pc = np.array(lf["stereo_pc"], np.float32)
     if lf.get("rel_ref", -1) >= 0:
         frame.rel_ref = int(lf["rel_ref"])
         frame.rel_R = np.array(lf["rel_R"])

@@ -25,13 +25,21 @@ def _f32_tensor(x, like):
 
 def project_landmarks(project_fn, R_cw, t_cw, lm_pos, lm_normal, lm_min_dist,
                       lm_max_dist, lm_mask, width, height, scale_factor=1.2,
-                      n_levels=8):
+                      n_levels=8, max_theta_deg=None):
     """Frustum + band + view-angle visibility and predicted level for all
     landmarks; leading batch axes of R_cw/t_cw/lm_mask broadcast.
+    ``max_theta_deg`` (a wide-FOV lens: half its FOV) replaces the pinhole
+    z > 0.01 gate by theta < max_theta_deg and |p| > 1e-3, so points past
+    90 degrees off-axis stay visible.
     Returns (uv (..., L, 2), visible (..., L), pred_level (..., L) int32,
     view_cos (..., L))."""
     p = torch.einsum("...ij,...lj->...li", R_cw, lm_pos) + t_cw[..., None, :]
-    z_ok = p[..., 2] > 0.01
+    if max_theta_deg is None:
+        z_ok = p[..., 2] > 0.01
+    else:
+        theta = torch.atan2(torch.linalg.norm(p[..., :2], dim=-1), p[..., 2])
+        z_ok = (theta < torch.deg2rad(_f32_tensor(max_theta_deg, p))) & (
+            torch.linalg.norm(p, dim=-1) > 1e-3)
     uv = project_fn(p)
     in_img = ((uv[..., 0] >= 0) & (uv[..., 0] < width)
               & (uv[..., 1] >= 0) & (uv[..., 1] < height))
@@ -62,7 +70,7 @@ def match_local_map(
     lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_desc, lm_mask,
     f_uv, f_level, f_desc, f_valid,
     width, height, th=1.0, nn_ratio=0.8, scale_factor=1.2, n_levels=8,
-    level_slack=1, max_dist=TH_HIGH,
+    level_slack=1, max_dist=TH_HIGH, max_theta_deg=None,
 ):
     """SearchByProjection(Frame, vector<MapPoint*>, th): track-local-map.
 
@@ -70,11 +78,12 @@ def match_local_map(
     landmark block is shared).  lm_desc and f_desc are (..., 256) uint8
     bits or (..., 8) int32 words (``cuda_matching.pack_desc``); a caller
     that matches the same descriptors again passes words packed once.
+    ``max_theta_deg`` as in project_landmarks.
     Returns per-keypoint (lm_slot (..., N) int64, ok (..., N), visible
     (..., L))."""
     uv_proj, visible, pred, view_cos = project_landmarks(
         project_fn, R_cw, t_cw, lm_pos, lm_normal, lm_min_dist, lm_max_dist,
-        lm_mask, width, height, scale_factor, n_levels)
+        lm_mask, width, height, scale_factor, n_levels, max_theta_deg)
     radius = _search_radius(view_cos, pred, th, scale_factor)
     best, second, lm_slot = gated_nn(
         f_desc, f_uv, f_level, f_valid,
@@ -100,7 +109,7 @@ def match_local_map_batch(
     lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_desc, lm_masks,
     f_uvs, f_levels, f_descs, f_valids,
     width, height, th=1.0, nn_ratio=0.8, scale_factor=1.2, n_levels=8,
-    level_slack=1, max_dist=100.0,
+    level_slack=1, max_dist=100.0, max_theta_deg=None,
 ):
     """Fuse-style projection matching of ONE shared landmark block into MANY
     target keyframes: the leading (neighbour) axis of R_cws/t_cws/lm_masks/
@@ -110,7 +119,8 @@ def match_local_map_batch(
         project_fn, R_cws, t_cws, lm_pos, lm_normal, lm_min_dist,
         lm_max_dist, lm_desc, lm_masks, f_uvs, f_levels, f_descs, f_valids,
         width, height, th=th, nn_ratio=nn_ratio, scale_factor=scale_factor,
-        n_levels=n_levels, level_slack=level_slack, max_dist=max_dist)
+        n_levels=n_levels, level_slack=level_slack, max_dist=max_dist,
+        max_theta_deg=max_theta_deg)
 
 
 def match_by_descriptor(q_desc, q_valid, t_desc, t_valid, max_dist=50.0,

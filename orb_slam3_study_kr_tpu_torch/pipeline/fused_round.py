@@ -76,7 +76,8 @@ def _round(project_fn, project_jac_fn, undistort_fn, R, t,
            f_uv, f_level, f_desc, f_valid, f_uv_raw, f_angle,
            pyr, level_wh, width, height, th, nn_ratio, scale_factor,
            n_levels, level_slack, klt_zncc_min, klt_max_shift,
-           klt_distinct_min, move_obs, ur=None, bf=None, apply_gate=None):
+           klt_distinct_min, move_obs, ur=None, bf=None, apply_gate=None,
+           max_theta_deg=None, wide_fov=False):
     """One match -> KLT verify -> bind -> pose-GN round.  With
     ``apply_gate`` (a bool tensor) the round's effects apply only where it
     is True."""
@@ -85,7 +86,8 @@ def _round(project_fn, project_jac_fn, undistort_fn, R, t,
         lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_desc, lm_mask,
         f_uv, f_level, f_desc, f_valid,
         width, height, th=th, nn_ratio=nn_ratio, scale_factor=scale_factor,
-        n_levels=n_levels, level_slack=level_slack)
+        n_levels=n_levels, level_slack=level_slack,
+        max_theta_deg=max_theta_deg)
     gate = (torch.ones((), dtype=torch.bool, device=R.device)
             if apply_gate is None else apply_gate)
     free = kp_lm == NO_LM
@@ -100,7 +102,7 @@ def _round(project_fn, project_jac_fn, undistort_fn, R, t,
     bound = (kp_lm_new != NO_LM) & f_valid
     R_new, t_new, inl, _ = optimize_pose(
         project_fn, project_jac_fn, R, t, X, f_uv, f_level,
-        bound.to(torch.float32), ur_obs=ur, bf=bf)
+        bound.to(torch.float32), ur_obs=ur, bf=bf, wide_fov=wide_fov)
     R = torch.where(gate, R_new, R)
     t = torch.where(gate, t_new, t)
     inl = inl & bound
@@ -147,9 +149,9 @@ def fused_track_frame(
     min_track_matches,
     th_wide=3.0, th_wide_retry=6.0, th_local=1.0,
     nn_ratio=0.8, scale_factor=1.2, n_levels=8,
-    wide_slack=7, local_slack=1,
+    wide_slack=7, local_slack=1, max_theta_deg=None,
     klt_zncc_min=0.5, klt_max_shift=3.0, klt_distinct_min=0.15,
-    n_local_rounds=2, move_obs=True,
+    wide_fov=False, n_local_rounds=2, move_obs=True,
     ur_obs=None, bf=None,
     flow=None, flow_radius=40.0,
     R_last=None, t_last=None,
@@ -158,6 +160,8 @@ def fused_track_frame(
     lm_desc is (L, 256) uint8 bits or (L, 8) int32 words; f_desc is the
     frame's (N, 256) uint8 bits; ur_obs (N,) the right coordinates of a
     stereo or RGB-D frame (-1 = mono) with bf = fx * baseline, or None.
+    A fisheye frame passes its lens's max_theta_deg (the theta gate of
+    every match) and wide_fov (the |p| > 1e-3 cheirality of every solve).
 
     Returns (R, t, kp_lm, inliers, visible_round1, n_mm,
     (f_uv, f_uv_raw, ur, moved), n_flow), all tensors on the input device
@@ -195,7 +199,8 @@ def fused_track_frame(
             bound0 = (kp_lm != NO_LM) & f_valid
             R_fl, t_fl, _, _ = optimize_pose(
                 project_fn, project_jac_fn, R_last, t_last, kp_lm_pos,
-                f_uv, f_level, bound0.to(torch.float32), ur_obs=ur, bf=bf)
+                f_uv, f_level, bound0.to(torch.float32), ur_obs=ur, bf=bf,
+                wide_fov=wide_fov)
             use_fl = bound0.sum() >= 20
             R = torch.where(use_fl, R_fl, R)
             t = torch.where(use_fl, t_fl, t)
@@ -203,7 +208,8 @@ def fused_track_frame(
     common = dict(nn_ratio=nn_ratio, scale_factor=scale_factor,
                   n_levels=n_levels, klt_zncc_min=klt_zncc_min,
                   klt_max_shift=klt_max_shift,
-                  klt_distinct_min=klt_distinct_min, move_obs=move_obs)
+                  klt_distinct_min=klt_distinct_min, move_obs=move_obs,
+                  max_theta_deg=max_theta_deg, wide_fov=wide_fov)
     f_words = as_words(f_desc)
     lm_words = as_words(lm_desc)
 
@@ -261,15 +267,16 @@ def fused_track_rounds(
     pyr, level_wh,
     width, height,
     th=1.0, nn_ratio=0.8, scale_factor=1.2, n_levels=8, level_slack=1,
+    max_theta_deg=None,
     klt_zncc_min=0.5, klt_max_shift=3.0, klt_distinct_min=0.15,
-    n_rounds=1, move_obs=True,
+    wide_fov=False, n_rounds=1, move_obs=True,
     ur_obs=None, bf=None,
     flow=None, flow_radius=40.0,
 ):
     """``n_rounds`` complete rounds over one padded landmark block (the
     split path's motion-model and local-map steps), optionally after the
-    flow-anchor prologue.  Descriptors and ur_obs / bf as in
-    ``fused_track_frame``.
+    flow-anchor prologue.  Descriptors, ur_obs / bf and the fisheye
+    max_theta_deg / wide_fov as in ``fused_track_frame``.
 
     Returns (R, t, kp_lm, inliers, visible_round1,
     (f_uv, f_uv_raw, ur, moved), n_flow)."""
@@ -303,7 +310,8 @@ def fused_track_rounds(
                            f_uv_raw, f_angle, pyr, level_wh, width, height,
                            th, nn_ratio, scale_factor, n_levels, level_slack,
                            klt_zncc_min, klt_max_shift, klt_distinct_min,
-                           move_obs, ur=ur, bf=bf)
+                           move_obs, ur=ur, bf=bf,
+                           max_theta_deg=max_theta_deg, wide_fov=wide_fov)
         moved_any = moved_any | mv
         if visible_r1 is None:
             visible_r1 = visible

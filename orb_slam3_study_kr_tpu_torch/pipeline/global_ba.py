@@ -119,7 +119,7 @@ def _solve_gba(cfg, s, n_iters, dev):
         cfg.project_fn, cfg.project_jac_fn, t("R_all"), t("t_all"),
         t("fixed_p"), t("X"), t("lm_mask"), t("op"), t("ol"), t("ouv"),
         t("olev"), t("omask"), n_iters=n_iters, assembly=assembly,
-        **stereo_kw)
+        wide_fov=cfg.is_kb8, **stereo_kw)
     return {k: v.cpu().numpy() for k, v in
             dict(R=R, t=tr, X_new=X_new, chi2=chi2).items()}
 

@@ -227,10 +227,11 @@ class ImuMixin:
         if not map_updated and self._prior_info is not None:
             out = pose_inertial_optimization_last_frame(
                 cfg.project_fn, *anchor, t(self._prior_info, torch.float32),
-                self._pre_frame, *common)
+                self._pre_frame, *common, wide_fov=cfg.is_kb8)
         else:
             out = pose_inertial_optimization(cfg.project_fn, *anchor,
-                                             self._pre_frame, *common)
+                                             self._pre_frame, *common,
+                                             wide_fov=cfg.is_kb8)
         R, p, v, bias, inl, info = (_np(a) for a in out)
         self._prior_info = info if np.isfinite(info).all() else None
         self._prior_change_idx = m.change_idx
@@ -618,7 +619,7 @@ class ImuMixin:
             torch.ones(n_chain - 1, device=self.device),
             n_iters=n_iters, shared_bias=shared_bias, bias_src=n_chain - 1,
             prior_gyro=prior_gyro, prior_acc=prior_acc, fixed_vb=t(fixed_vb),
-            **stereo_kw)
+            wide_fov=cfg.is_kb8, **stereo_kw)
         R_f, p_f, v_f, b_f, X_f, chi2, cost = (_np(a) for a in out)
         if not (np.isfinite(float(cost)) and np.isfinite(R_f).all()
                 and np.isfinite(p_f).all()):
@@ -715,9 +716,16 @@ class RgbdInertialTracker(ImuMixin, StereoTracker):
 
 
 class FisheyeStereoInertialTracker(ImuMixin, FisheyeStereoTracker):
-    """KB8 fisheye stereo-inertial tracking (the TUM-VI rig): not ported
-    yet; FisheyeStereoTracker raises, naming ROADMAP item 16."""
+    """KB8 fisheye stereo-inertial tracking, the TUM-VI configuration
+    (stereo_inertial_tum_vi): the non-rectified fisheye front end with the
+    stereo-inertial IMU machinery, composed as stereo-inertial is.  The IMU
+    init estimates the scale here instead of fixing it: the reference fixes
+    it only when bf > 0, and a fisheye rig keeps bf = 0 (ROADMAP.md §3
+    item 12)."""
 
     def __init__(self, cfg, slam_map, calib: ImuCalib = None,
                  imu_init_times=(2.0, 5.0, 15.0), **kw):
         super().__init__(cfg, slam_map, **kw)
+        self._init_imu_state(_calib_or_default(calib, cfg), imu_init_times)
+
+    process_stereo_inertial = StereoInertialTracker.process_stereo_inertial

@@ -297,7 +297,8 @@ class LocalMapper:
         cfg = self.cfg
         args = [self._t(a) for a in call_args]
         lm_slot, ok, _ = track_match.match_local_map_batch(
-            cfg.project_fn, *args, cfg.width, cfg.height, th=3.0, max_dist=50.0)
+            cfg.project_fn, *args, cfg.width, cfg.height, th=3.0, max_dist=50.0,
+            max_theta_deg=cfg.max_theta_deg)
         return lm_slot, ok
 
     def _fuse_apply(self, nbs, cand, lm_slot_all, ok_all, lms_kf, obs):
@@ -399,6 +400,7 @@ class LocalMapper:
             return
         R, t, X_new, chi2, _ = bundle_adjust(*prob["args"],
                                              n_iters=self.ba_iters,
+                                             wide_fov=self.cfg.is_kb8,
                                              **prob["stereo_kw"])
         with m.lock:
             self._local_ba_apply(prob, _np(R), _np(t), _np(X_new), _np(chi2))

@@ -167,7 +167,8 @@ class LoopCloser:
                 t(_pad(m.lm_desc[lms], MAX_WINDOW_LMS)), t(mask),
                 t(m.kf_kp_uv[kf]), t(m.kf_kp_level[kf]), t(m.kf_desc[kf]),
                 t(m.kf_kp_valid[kf]),
-                self.cfg.width, self.cfg.height, th=th, max_dist=50.0)
+                self.cfg.width, self.cfg.height, th=th, max_dist=50.0,
+                max_theta_deg=self.cfg.max_theta_deg)
         lm_slot, ok = _np(out[0]), _np(out[1])
         ok = ok & (lm_slot < n)
         kp_idx = np.nonzero(ok)[0]

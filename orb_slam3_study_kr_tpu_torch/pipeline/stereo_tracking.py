@@ -13,13 +13,17 @@ stereo residual row in pose optimization and BA (``cfg.bf``).
 RGB-D takes the same path with the depth sampled from the depth map and a
 virtual right coordinate u - bf / depth.  The right image of a stereo pair
 is extracted without its pyramid: K1 runs twice per stereo frame, once per
-RGB-D frame.
+RGB-D frame.  ``FisheyeStereoTracker`` is the non-rectified KB8 rig: its
+stereo points come from ``ops/fisheye_stereo.py`` and carry no right
+coordinate.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from orb_slam3_study_kr_tpu_torch.ops import orb, stereo
+from orb_slam3_study_kr_tpu_torch.ops import fisheye_stereo, orb, stereo
 from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
 from orb_slam3_study_kr_tpu_torch.pipeline.tracking import (MonoTracker,
                                                             TrackerConfig,
@@ -168,9 +172,65 @@ class StereoTracker(MonoTracker):
 
 
 class FisheyeStereoTracker(StereoTracker):
-    """Non-rectified KB8 fisheye stereo rig: not ported yet."""
+    """Non-rectified KB8 fisheye stereo rig (the TUM-VI configuration;
+    Frame::ComputeStereoFishEyeMatches): left and right keypoints are
+    matched by descriptor under the epipolar-plane gate of the known
+    extrinsic and triangulated from bearing rays
+    (``ops/fisheye_stereo.py``).  An accepted keypoint carries its full
+    left-camera point (``frame.stereo_pc``) and its range along the left
+    ray (``frame.depth``); initialization is immediate and metric from
+    those points.  Residuals stay per-camera KB8 reprojections: u_r = -1
+    everywhere and cfg.bf must be 0 (there is no rectified row).  Both
+    images are extracted with K1, the right one with ``cfg_right``.
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(
-            "FisheyeStereoTracker: the KB8 fisheye stereo rig is not ported "
-            "yet (ROADMAP item 16)")
+    R_rl, t_rl: the pose of the left camera in the right camera's frame
+    (p_r = R_rl p_l + t_rl); defaults identity and (-0.11, 0, 0).
+    cfg_right: the right lens (defaults to the left's), run on the left
+    config's device."""
+
+    def __init__(self, cfg: TrackerConfig, slam_map, R_rl=None, t_rl=None,
+                 cfg_right: TrackerConfig = None, baseline=None,
+                 depth_factor=40.0, **kw):
+        if not cfg.is_kb8:
+            raise ValueError("FisheyeStereoTracker requires camera_model='kb8'")
+        if cfg.bf != 0.0:
+            raise ValueError("fisheye stereo uses per-camera residuals; "
+                             "set cfg.bf = 0")
+        self.cfg_right = (cfg if cfg_right is None else
+                          dataclasses.replace(cfg_right, device=cfg.device))
+        self.R_rl = (np.eye(3, dtype=np.float32) if R_rl is None
+                     else np.asarray(R_rl, np.float32))
+        self.t_rl = (np.array([-0.11, 0.0, 0.0], np.float32) if t_rl is None
+                     else np.asarray(t_rl, np.float32))
+        if baseline is None:
+            baseline = float(np.linalg.norm(self.t_rl))
+        super().__init__(cfg, slam_map, baseline=baseline,
+                         depth_factor=depth_factor, **kw)
+        self._R_rl = self._t(self.R_rl)
+        self._t_rl = self._t(self.t_rl)
+
+    def process_stereo(self, img_left, img_right, timestamp) -> Frame:
+        cfg, cfg_r = self.cfg, self.cfg_right
+        with self.timers.stage("track/extract"):
+            frame = self._extract_frame(img_left, timestamp)
+            fR = orb.extract_orb(self._image(img_right), cfg_r.orb_config)
+            self._sync()
+        with self.timers.stage("track/stereo_match"):
+            out = fisheye_stereo.match_stereo_fisheye(
+                cfg.project_fn, cfg_r.project_fn, cfg.focal,
+                self._R_rl, self._t_rl,
+                frame.dev("uv"), cfg.unproject_fn(frame.dev("uv")),
+                frame.dev("level"), frame.dev("desc"), frame.dev("valid"),
+                frame.dev("angle"),
+                fR.uv, cfg_r.unproject_fn(fR.uv), fR.level, fR.desc,
+                fR.valid, fR.angle)
+            ok = _np(out["ok"])
+            frame.stereo_pc = _np(out["X"]).astype(np.float32)
+            frame.depth = np.where(ok, _np(out["depth"]), -1.0).astype(
+                np.float32)
+            frame.u_r = np.full(ok.shape[0], -1.0, np.float32)
+        self._track_or_initialize(frame)
+        return frame
+
+    def _cheap_depth_points(self, frame, sel):
+        return frame.stereo_pc[sel].astype(np.float32)

@@ -1,5 +1,5 @@
-"""Public session API: monocular, rectified stereo and RGB-D, each also
-with an IMU.
+"""Public session API: monocular, stereo (rectified, or a non-rectified
+KB8 fisheye rig) and RGB-D, each also with an IMU.
 
 Counterpart of ``orb_slam3_study_kr_tpu/pipeline/system.py``
 (``SystemConfig``, ``SlamSystem``): builds the map and the pipeline stages,
@@ -46,11 +46,13 @@ from orb_slam3_study_kr_tpu_torch.ops.track_match import match_by_descriptor
 from orb_slam3_study_kr_tpu_torch.pipeline.async_mapping import AsyncMapping
 from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
 from orb_slam3_study_kr_tpu_torch.pipeline.inertial_tracking import (
-    InertialTracker, RgbdInertialTracker, StereoInertialTracker)
+    FisheyeStereoInertialTracker, InertialTracker, RgbdInertialTracker,
+    StereoInertialTracker)
 from orb_slam3_study_kr_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam3_study_kr_tpu_torch.pipeline.loop_closing import LoopCloser
 from orb_slam3_study_kr_tpu_torch.pipeline.map_merging import MapMerger
-from orb_slam3_study_kr_tpu_torch.pipeline.stereo_tracking import StereoTracker
+from orb_slam3_study_kr_tpu_torch.pipeline.stereo_tracking import (
+    FisheyeStereoTracker, StereoTracker)
 from orb_slam3_study_kr_tpu_torch.pipeline.tracking import (MonoTracker,
                                                             TrackerConfig,
                                                             TrackState)
@@ -73,10 +75,12 @@ class SystemConfig:
     sensor: str = "mono"
     baseline: float = 0.11      # stereo baseline [m]; bf = fx * baseline
     depth_factor: float = 40.0  # close-point threshold = factor * baseline
-    # Fisheye (KB8) stereo rigs (ROADMAP item 16): must stay None.
-    stereo_R_rl: tuple = None
-    stereo_t_rl: tuple = None
-    tracker_right: TrackerConfig = None
+    # A fisheye (kb8) stereo rig is not rectified: the full extrinsic
+    # p_right = R_rl p_left + t_rl replaces the baseline, and the right lens
+    # may differ from the left.
+    stereo_R_rl: tuple = None    # 3x3; None = identity
+    stereo_t_rl: tuple = None    # 3; None = (-0.11, 0, 0)
+    tracker_right: TrackerConfig = None  # None = the left lens
     # IMU (the inertial sensors only): noise densities, bias random walk,
     # rate, body <- camera extrinsic and the t1/t2/t3 init schedule.
     imu_noise_gyro: float = 1.7e-4
@@ -116,15 +120,6 @@ class SystemConfig:
         if self.sensor not in SENSORS:
             raise ValueError(f"SystemConfig.sensor={self.sensor!r}: expected "
                              f"one of {SENSORS}")
-        if self.tracker.camera_model == "kb8":
-            raise NotImplementedError(
-                "camera_model='kb8': the fisheye model and the fisheye stereo "
-                "rig are not ported yet (ROADMAP item 16)")
-        for name in ("stereo_R_rl", "stereo_t_rl", "tracker_right"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"SystemConfig.{name}: the non-rectified fisheye stereo "
-                    "rig is not ported yet (ROADMAP item 16)")
 
 
 def _np(t):
@@ -141,11 +136,17 @@ class SlamSystem:
         self.cfg.check_supported()
         self.device = resolve_device(self.cfg.device, "SystemConfig.device")
         bf = self.cfg.tracker.bf
-        if not self.cfg.sensor.startswith("mono") and bf == 0.0:
+        if (not self.cfg.sensor.startswith("mono") and bf == 0.0
+                and not self.cfg.tracker.is_kb8):
+            # A fisheye rig keeps bf = 0: its residuals stay per-camera KB8
+            # projections, never the rectified u_r row.
             bf = self.cfg.tracker.fx * self.cfg.baseline
         # The tracker, the mapper and the loop closer share this config.
         self.cfg.tracker = dataclasses.replace(self.cfg.tracker, bf=bf,
                                                device=str(self.device))
+        if self.cfg.tracker_right is not None:
+            self.cfg.tracker_right = dataclasses.replace(
+                self.cfg.tracker_right, device=str(self.device))
         self.ransac_sets_fn = ransac_sets_fn
         self.uniforms_fn = uniforms_fn
         self.loop_uniforms_fn = loop_uniforms_fn
@@ -218,6 +219,9 @@ class SlamSystem:
                   on_tracking_lost=self._on_tracking_lost,
                   ransac_sets_fn=self.ransac_sets_fn)
         stereo_kw = dict(baseline=c.baseline, depth_factor=c.depth_factor)
+        fisheye_kw = dict(R_rl=c.stereo_R_rl, t_rl=c.stereo_t_rl,
+                          cfg_right=c.tracker_right,
+                          depth_factor=c.depth_factor)
         if self.inertial:
             kw.update(calib=ImuCalib.make(
                 noise_gyro=c.imu_noise_gyro, noise_acc=c.imu_noise_acc,
@@ -230,8 +234,13 @@ class SlamSystem:
             return InertialTracker(c.tracker, m, **kw)
         if c.sensor == "rgbd-inertial":
             return RgbdInertialTracker(c.tracker, m, **stereo_kw, **kw)
+        if c.sensor == "stereo-inertial" and c.tracker.is_kb8:
+            return FisheyeStereoInertialTracker(c.tracker, m, **fisheye_kw,
+                                                **kw)
         if c.sensor == "stereo-inertial":
             return StereoInertialTracker(c.tracker, m, **stereo_kw, **kw)
+        if c.sensor == "stereo" and c.tracker.is_kb8:
+            return FisheyeStereoTracker(c.tracker, m, **fisheye_kw, **kw)
         return StereoTracker(c.tracker, m, **stereo_kw, **kw)
 
     # ------------------------------------------------------------------
@@ -443,10 +452,13 @@ class SlamSystem:
                 kf_lms = m.kf_kp_lm[kf]
                 kf_lms = np.unique(kf_lms[kf_lms != NO_LM])
                 kf_lms = kf_lms[m.lm_valid[kf_lms]]
+            # A fisheye frame gives PnP its unprojected rays.
             out = ransac_pnp(
                 cfg.project_fn, cfg.project_jac_fn, cfg.K, t(X),
                 frame.dev("uv"), frame.dev("level"),
-                t(mask.astype(np.float32)), self._pnp_uniforms(X.shape[0]))
+                t(mask.astype(np.float32)), self._pnp_uniforms(X.shape[0]),
+                bearings=(cfg.unproject_fn(frame.dev("uv")) if cfg.is_kb8
+                          else None))
             if not bool(out["success"].cpu()):
                 continue
             frame.R_cw = _np(out["R"])
@@ -629,8 +641,9 @@ class SlamSystem:
                            timestamp, img)
 
     def track_stereo(self, img_left, img_right, timestamp, imu=None):
-        """System::TrackStereo: a rectified left/right pair (and the IMU
-        rows for stereo-inertial)."""
+        """System::TrackStereo: a left/right pair, rectified or, with a kb8
+        lens, a non-rectified fisheye pair (and the IMU rows for
+        stereo-inertial)."""
         return self._timed(self._entry("process_stereo",
                                        "process_stereo_inertial", imu),
                            timestamp, img_left, img_right)

@@ -25,7 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from orb_slam3_study_kr_tpu_torch.cameras import pinhole
+from orb_slam3_study_kr_tpu_torch.cameras import camera as lens
+from orb_slam3_study_kr_tpu_torch.cameras import kb8, pinhole
 from orb_slam3_study_kr_tpu_torch.cameras.twoview import reconstruct_two_views
 from orb_slam3_study_kr_tpu_torch.lie.so3 import matrix_to_quat
 from orb_slam3_study_kr_tpu_torch.ops import klt, matching, orb, track_match
@@ -48,7 +49,6 @@ class TrackState(enum.Enum):
 # Options of the reference tracker this port does not carry yet, with the
 # value that keeps them off (ROADMAP.md names the item that ports each).
 _NOT_PORTED = {
-    "camera_model": ("pinhole", "fisheye (ROADMAP item 16)"),
     "klt_refine": (True, "the KLT-off tracker variant (ROADMAP item 12 knobs)"),
     "refkf_anchor": (False, "refkf_anchor (ROADMAP item 12 knobs)"),
     "patch_zncc_min": (-1.0, "patch_zncc_min > -1 (ROADMAP item 12 knobs)"),
@@ -64,7 +64,16 @@ class TrackerConfig:
     cx: float = 376.0
     cy: float = 240.0
     dist: tuple = (0.0, 0.0, 0.0, 0.0, 0.0)  # k1 k2 p1 p2 k3
+    # Lens model: "pinhole" or "kb8" (Kannala-Brandt fisheye, `dist` holds
+    # k1..k4).  KB8 is fisheye-native: keypoints stay in raw fisheye
+    # pixels, every projection, its Jacobian and every gate go through the
+    # KB8 model, triangulation works on unprojected rays and cheirality is
+    # |p| > 1e-3, so observations past 90 degrees off-axis stay live.  Only
+    # the monocular two-view bootstrap restricts itself to the central
+    # fov_max_deg cone, mapped onto a virtual pinhole.
     camera_model: str = "pinhole"
+    fov_max_deg: float = 75.0           # mono-bootstrap central cone (kb8)
+    fisheye_half_fov_deg: float = 98.0  # lens half-FOV visibility limit (kb8)
     fps: float = 20.0
     n_features: int = 1000
     orb_n_levels: int = 8
@@ -106,6 +115,9 @@ class TrackerConfig:
 
     def check_supported(self):
         """Raise NotImplementedError for reference options not ported yet."""
+        if self.camera_model not in ("pinhole", "kb8"):
+            raise ValueError(f"TrackerConfig.camera_model={self.camera_model!r}:"
+                             " expected 'pinhole' or 'kb8'")
         for name, (off, what) in _NOT_PORTED.items():
             if getattr(self, name) != off:
                 raise NotImplementedError(
@@ -117,21 +129,39 @@ class TrackerConfig:
                 "package yet (ROADMAP item 12 knobs)")
 
     def _tensor(self, values):
-        return torch.tensor(values, dtype=torch.float32, device=self.device)
+        return torch.tensor(values, dtype=torch.float32, device=resolve_device(
+            self.device, "TrackerConfig.device"))
 
     @functools.cached_property
     def cam_params(self):
         d = tuple(self.dist) + (0.0,) * (5 - len(self.dist))
         return self._tensor([self.fx, self.fy, self.cx, self.cy, *d])
 
+    @property
+    def is_kb8(self) -> bool:
+        """The fisheye lens: every solver then takes ``wide_fov`` (the
+        |p| > 1e-3 cheirality) and every match ``max_theta_deg``."""
+        return self.camera_model == "kb8"
+
+    def _ideal_intrinsics(self):
+        """(fx, fy, cx, cy) of the ideal pinhole; for kb8 the virtual
+        pinhole of the mono bootstrap, whose fov_max_deg half-angle maps to
+        half the shorter image side."""
+        if self.is_kb8:
+            f = 0.5 * min(self.width, self.height) / np.tan(
+                np.radians(self.fov_max_deg))
+            return f, f, self.width / 2, self.height / 2
+        return self.fx, self.fy, self.cx, self.cy
+
     @functools.cached_property
     def ideal_params(self):
-        return self._tensor([self.fx, self.fy, self.cx, self.cy, 0, 0, 0, 0, 0])
+        return self._tensor([*self._ideal_intrinsics(), 0, 0, 0, 0, 0])
 
     @functools.cached_property
     def K(self):
-        return self._tensor([[self.fx, 0, self.cx], [0, self.fy, self.cy],
-                             [0, 0, 1.0]])
+        """The matrix of ideal_params (float32, as ideal_params holds it)."""
+        fx, fy, cx, cy = (float(np.float32(v)) for v in self._ideal_intrinsics())
+        return self._tensor([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
 
     @functools.cached_property
     def orb_config(self):
@@ -142,29 +172,82 @@ class TrackerConfig:
             fast_min_threshold=self.orb_min_th_fast)
 
     @functools.cached_property
+    def camera(self):
+        """The lens of the frames' pixel coords, the one place the model is
+        chosen: KB8 on cam_params (fisheye-native, raw pixels), or the
+        ideal pinhole of the undistorted coords."""
+        if self.is_kb8:
+            return lens.Camera(self.cam_params, lens.CameraKind.KB8,
+                               self.width, self.height)
+        return lens.Camera(self.ideal_params, lens.CameraKind.PINHOLE,
+                           self.width, self.height)
+
+    @functools.cached_property
     def project_fn(self):
-        return functools.partial(pinhole.project, self.ideal_params)
+        return functools.partial(lens.project, self.camera)
 
     @functools.cached_property
     def project_jac_fn(self):
-        return functools.partial(pinhole.project_jac, self.ideal_params)
+        return functools.partial(lens.project_jac, self.camera)
 
     @functools.cached_property
     def undistort_px_fn(self):
-        """Raw pixel coords -> ideal undistorted pixels."""
-        cam, ideal = self.cam_params, self.ideal_params
+        """Raw pixel coords -> the frame's matching coords: raw pixels
+        themselves for fisheye-native kb8, ideal undistorted pixels for
+        pinhole."""
+        if self.is_kb8:
+            return _identity_uv
+        raw = lens.Camera(self.cam_params, lens.CameraKind.PINHOLE,
+                          self.width, self.height)
+        ideal = self.camera
 
         def f(uv):
-            return pinhole.project(ideal, pinhole.unproject(cam, uv))
+            return lens.project(ideal, lens.unproject(raw, uv))
         return f
 
     @functools.cached_property
     def unproject_fn(self):
-        return functools.partial(pinhole.unproject, self.ideal_params)
+        """Frame pixel coords -> bearing rays (unit rays for kb8, z = 1
+        points for pinhole)."""
+        return functools.partial(lens.unproject, self.camera)
+
+    @property
+    def max_theta_deg(self):
+        """Off-axis visibility limit of the projection gates (None: the
+        pinhole z > 0 frustum)."""
+        return float(self.fisheye_half_fov_deg) if self.is_kb8 else None
 
     @property
     def focal(self):
+        """Representative focal length (pixels) of the angular gates."""
         return float(self.fx)
+
+
+def _identity_uv(uv):
+    return uv
+
+
+def _ray_roundtrip_ok(cam_params, uv):
+    """KB8 unprojection validity: a ray whose Newton unprojection diverged,
+    or that lies outside the lens model, does not reproject within 0.5 px
+    of its pixel."""
+    rays = kb8.unproject(cam_params, uv)
+    err = torch.linalg.norm(kb8.project(cam_params, rays) - uv, dim=-1)
+    return err < 0.5
+
+
+def _kb8_central_virtual(cam_params, ideal_params, uv, fov_max_deg):
+    """Fisheye keypoints -> virtual ideal-pinhole coordinates and the mask
+    of those inside the central fov_max_deg cone that round-trip; used only
+    by the monocular two-view bootstrap, whose H/F RANSAC wants planar
+    pinhole coordinates."""
+    rays = kb8.unproject(cam_params, uv)
+    uv_ideal = pinhole.project(ideal_params, rays)
+    err = torch.linalg.norm(kb8.project(cam_params, rays) - uv, dim=-1)
+    theta = torch.atan2(torch.linalg.norm(rays[..., :2], dim=-1), rays[..., 2])
+    ok = (err < 0.5) & (theta < torch.deg2rad(
+        torch.tensor(fov_max_deg, dtype=torch.float32, device=uv.device)))
+    return uv_ideal, ok
 
 
 def _np_se3_inverse(R, t):
@@ -243,12 +326,17 @@ class MonoTracker:
             img_dev = self._t(a if a.dtype == np.uint8 else a.astype(np.float32))
         feats, pyr = orb.extract_orb(img_dev, cfg.orb_config, with_pyramid=True)
         uv_dev = cfg.undistort_px_fn(feats.uv)
+        valid_dev = feats.valid
+        if cfg.is_kb8:
+            # Fisheye-native: only rays whose unprojection fails to round-
+            # trip are dropped, not an FOV crop (> 90 degrees stays live).
+            valid_dev = valid_dev & _ray_roundtrip_ok(cfg.cam_params, feats.uv)
 
-        def fetch(feats=feats, uv_dev=uv_dev):
+        def fetch(feats=feats, uv_dev=uv_dev, valid_dev=valid_dev):
             return dict(uv=_np(uv_dev).copy(), uv_raw=_np(feats.uv).copy(),
                         level=_np(feats.level), angle=_np(feats.angle),
                         response=_np(feats.response), desc=_np(feats.desc),
-                        valid=_np(feats.valid), patch=_np(feats.patch).copy())
+                        valid=_np(valid_dev), patch=_np(feats.patch).copy())
 
         frame = Frame(frame_id=self.frame_count, timestamp=timestamp,
                       n_kp=cfg.orb_config.total_slots, fetch=fetch,
@@ -258,7 +346,7 @@ class MonoTracker:
         frame.set_dev("uv_raw", feats.uv)
         frame.set_dev("level", feats.level)
         frame.set_dev("desc", feats.desc)
-        frame.set_dev("valid", feats.valid)
+        frame.set_dev("valid", valid_dev)
         frame.set_dev("angle", feats.angle)
         self.frame_count += 1
         self.stats["n_frames"] += 1
@@ -307,9 +395,21 @@ class MonoTracker:
         if ok.sum() < cfg.min_init_matches:
             self.init_ref = frame
             return
+        uv1_init, uv2_init = self._t(ref.uv), self._t(frame.uv[idx])
+        if cfg.is_kb8:
+            # Bootstrap on the central cone mapped to a virtual pinhole (the
+            # same camera centre, so pts3d stay in camera-1 coordinates).
+            uv1_init, ok1 = _kb8_central_virtual(
+                cfg.cam_params, cfg.ideal_params, uv1_init, cfg.fov_max_deg)
+            uv2_init, ok2 = _kb8_central_virtual(
+                cfg.cam_params, cfg.ideal_params, uv2_init, cfg.fov_max_deg)
+            ok = ok & _np(ok1) & _np(ok2)
+            if ok.sum() < cfg.min_init_matches:
+                self.init_ref = frame
+                return
         mask = ok.astype(np.float32)
         out = reconstruct_two_views(
-            self._t(ref.uv), self._t(frame.uv[idx]), self._t(mask), cfg.K,
+            uv1_init, uv2_init, self._t(mask), cfg.K,
             generator=self._gen, sets=self._ransac_sets(mask))
         if not bool(out["success"]):
             return
@@ -378,7 +478,7 @@ class MonoTracker:
             self._t(m.kf_kp_uv[okf, okp]),
             self._t(m.kf_kp_level[okf, okp]),
             torch.ones(O, device=self.device),
-            n_iters=20)
+            n_iters=20, wide_fov=cfg.is_kb8)
         m.kf_R[[kf0, kf1]] = _np(R)
         m.kf_t[[kf0, kf1]] = _np(t)
         m.lm_pos[lm_set] = _np(X)
@@ -563,7 +663,8 @@ class MonoTracker:
             self._t(desc), self._t(mask),
             frame.dev("uv"), frame.dev("level"), frame.dev("desc"),
             frame.dev("valid"),
-            cfg.width, cfg.height, th=th, level_slack=7 if wide_gates else 1)
+            cfg.width, cfg.height, th=th, level_slack=7 if wide_gates else 1,
+            max_theta_deg=cfg.max_theta_deg)
         lm_slot, ok, visible = _np(lm_slot), _np(ok), _np(visible)
         matched_lm = np.where(ok, lm_ids[np.clip(lm_slot, 0, lm_ids.size - 1)],
                               NO_LM).astype(np.int32)
@@ -628,7 +729,8 @@ class MonoTracker:
             cfg.project_fn, cfg.project_jac_fn,
             self._t(R0, torch.float32), self._t(t0, torch.float32),
             self._t(X), frame.dev("uv"), frame.dev("level"),
-            self._t(mask.astype(np.float32)), **self._stereo_kw(frame))
+            self._t(mask.astype(np.float32)), wide_fov=cfg.is_kb8,
+            **self._stereo_kw(frame))
         inl = _np(inl) & mask
         frame.R_cw = _np(R).copy()
         frame.t_cw = _np(t).copy()
@@ -993,9 +1095,11 @@ class MonoTracker:
                 n_local_rounds=cfg.fused_local_rounds,
                 scale_factor=cfg.orb_scale_factor,
                 n_levels=cfg.orb_n_levels,
+                max_theta_deg=cfg.max_theta_deg,
                 klt_zncc_min=cfg.klt_zncc_min,
                 klt_max_shift=cfg.klt_max_shift,
                 klt_distinct_min=cfg.klt_distinct_min,
+                wide_fov=cfg.is_kb8,
                 move_obs=cfg.klt_move_obs,
                 flow=flow, flow_radius=cfg.flow_anchor_radius,
                 R_last=(self._t(lf.R_cw, torch.float32)
@@ -1057,9 +1161,10 @@ class MonoTracker:
                 frame.dev("valid"), frame.dev("uv_raw"), frame.dev("angle"),
                 frame.pyr, self._level_wh, cfg.width, cfg.height, th=th,
                 scale_factor=cfg.orb_scale_factor, n_levels=cfg.orb_n_levels,
-                level_slack=level_slack, klt_zncc_min=cfg.klt_zncc_min,
+                level_slack=level_slack, max_theta_deg=cfg.max_theta_deg,
+                klt_zncc_min=cfg.klt_zncc_min,
                 klt_max_shift=cfg.klt_max_shift,
-                klt_distinct_min=cfg.klt_distinct_min,
+                klt_distinct_min=cfg.klt_distinct_min, wide_fov=cfg.is_kb8,
                 n_rounds=n_rounds, move_obs=cfg.klt_move_obs,
                 flow=flow, flow_radius=cfg.flow_anchor_radius,
                 **self._stereo_kw(frame))

@@ -204,14 +204,14 @@ def _visual_rows(project_fn, R, p, R_cb, t_cb, X, uv_obs):
 
 
 def _frame_weights(project_fn, R, p, R_cb, t_cb, X, uv_obs, inv_sigma2,
-                   obs_mask):
+                   obs_mask, wide_fov):
     """sqrt IRLS weights (N,) and chi2 of one body pose's monocular rows
-    (Huber at sqrt(5.991), depth > 1e-3)."""
+    (Huber at sqrt(5.991), the cheirality of robust.cheirality)."""
     r, pc = _visual_rows(project_fn, R[None], p[None], R_cb, t_cb, X, uv_obs)
     r, pc = r[0], pc[0]
     chi2 = torch.sum(r * r, -1) * inv_sigma2
     w = obs_mask * inv_sigma2 * robust.huber_weight(chi2, robust.HUBER_MONO)
-    w = w * (pc[:, 2] > 1e-3)
+    w = w * robust.cheirality(pc, wide_fov)
     return torch.sqrt(torch.clamp(w, min=0.0)), chi2
 
 
@@ -248,10 +248,11 @@ def pose_inertial_optimization(
         R_wb_init, p_wb_init, v_w_init,  # current-state initialization
         R_cb, t_cb,                      # camera <- body extrinsic
         X, uv_obs, level, obs_mask,      # visual observations of the frame
-        n_iters=10, damping=1e-3):
+        n_iters=10, damping=1e-3, wide_fov=False):
     """The current frame's (R, p, v, bias) against its matched landmarks and
     the preintegration edge from the fixed anchor state
-    (PoseInertialOptimizationLastKeyFrame, visual rows monocular).
+    (PoseInertialOptimizationLastKeyFrame, visual rows monocular;
+    ``wide_fov``: the fisheye cheirality |p| > 1e-3).
 
     Returns (R_wb, p_wb, v_w, bias, inliers, info (15, 15))."""
     inv_sigma2 = robust.octave_inv_sigma2(level)
@@ -266,7 +267,7 @@ def pose_inertial_optimization(
     def weights(x):
         R, p, _, _ = unpack(x[None])
         return _frame_weights(project_fn, R[0], p[0], R_cb, t_cb, X, uv_obs,
-                              inv_sigma2, obs_mask)[0]
+                              inv_sigma2, obs_mask, wide_fov)[0]
 
     def residuals(x, w_vis):
         R, p, v, bias = unpack(x)
@@ -281,7 +282,7 @@ def pose_inertial_optimization(
     x = _damped_gn(residuals, weights, x, n_iters, damping)
     R, p, v, bias = (a[0] for a in unpack(x[None]))
     w_vis, chi2 = _frame_weights(project_fn, R, p, R_cb, t_cb, X, uv_obs,
-                                 inv_sigma2, obs_mask)
+                                 inv_sigma2, obs_mask, wide_fov)
     inliers = (chi2 <= robust.CHI2_MONO) & (obs_mask > 0)
     # The Gauss-Newton information at the optimum: the 15-D marginal prior
     # carried to the next frame's solve (the anchor is fixed, so the Schur
@@ -335,7 +336,7 @@ def pose_inertial_optimization_last_frame(
         R_wb_init, p_wb_init, v_w_init,  # current-state initialization
         R_cb, t_cb,
         X, uv_obs, level, obs_mask,
-        n_iters=10, damping=1e-3):
+        n_iters=10, damping=1e-3, wide_fov=False):
     """PoseInertialOptimizationLastFrame: a joint 30-dof solve over
     [previous frame, current frame]; the previous frame carries the 15-D
     marginal prior of its own solve and is marginalized out afterwards
@@ -359,7 +360,7 @@ def pose_inertial_optimization_last_frame(
     def weights(x):
         _, (Rc, pc_, _, _) = unpack(x[None])
         return _frame_weights(project_fn, Rc[0], pc_[0], R_cb, t_cb, X,
-                              uv_obs, inv_sigma2, obs_mask)[0]
+                              uv_obs, inv_sigma2, obs_mask, wide_fov)[0]
 
     def residuals(x, w_vis):
         (Rp, pp, vp, bp), (Rc, pc_, vc, bc) = unpack(x)
@@ -375,7 +376,7 @@ def pose_inertial_optimization_last_frame(
     _, cur = unpack(x[None])
     R, p, v, bias = (a[0] for a in cur)
     w_vis, chi2 = _frame_weights(project_fn, R, p, R_cb, t_cb, X, uv_obs,
-                                 inv_sigma2, obs_mask)
+                                 inv_sigma2, obs_mask, wide_fov)
     inliers = (chi2 <= robust.CHI2_MONO) & (obs_mask > 0)
     J = batched_jacobian(lambda xx: residuals(xx, w_vis), x)
     H = J.T @ J

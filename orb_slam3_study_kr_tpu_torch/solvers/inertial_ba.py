@@ -63,7 +63,8 @@ def inertial_bundle_adjust(
         prior_acc: float = 0.0,
         init_lambda: float = 1e-4,
         obs_ur=None, bf=None,
-        fixed_vb=None):               # (K,) 1.0 = frozen velocity and bias
+        fixed_vb=None,                # (K,) 1.0 = frozen velocity and bias
+        wide_fov: bool = False):      # fisheye: |p| > 1e-3, not z > 1e-3
     """Returns (R_wb, p_wb, v_w, bias, X, chi2_vis (O,), cost).
 
     edge_i / edge_j index the K states (masked edges are no-ops).  In
@@ -145,7 +146,7 @@ def inertial_bundle_adjust(
         J_phi = torch.einsum("nda,ab,nbc->ndc", Jp, R_cb, hat(q))
         J_dp = -torch.einsum("nda,nab->ndb", Jp, RcRbw)
         J_X = torch.einsum("nda,nab->ndb", Jp, RcRbw)
-        depth_ok = (pc[..., 2] > 1e-3).to(dtype)
+        depth_ok = robust.cheirality(pc, wide_fov).to(dtype)
         return r, torch.cat([J_phi, J_dp], -1), J_X, depth_ok
 
     def edge_res(dx, R_all, p_all, v_all, b_all):

@@ -89,11 +89,12 @@ def bundle_adjust(project_fn, project_jac_fn,
                   obs_pose, obs_lm, obs_uv, obs_level, obs_mask,
                   n_iters: int = 10, use_huber: bool = True,
                   init_lambda: float = 1e-4, assembly: str = "dense",
-                  n_cg: int = 60, obs_ur=None, bf=None):
+                  n_cg: int = 60, obs_ur=None, bf=None, wide_fov=False):
     """Returns (R_cw, t_cw, X, final_chi2 (O,), final_cost).  ``assembly``
     is "dense" or "pcg" (see the module docstring).  With obs_ur (O,) and
     bf = fx * baseline, observations with obs_ur >= 0 get the stereo third
-    residual row and the 3-dof chi2/Huber gate 7.815."""
+    residual row and the 3-dof chi2/Huber gate 7.815.  ``wide_fov``: the
+    fisheye cheirality |p| > 1e-3 in place of z > 1e-3."""
     if assembly not in ("dense", "pcg"):
         raise ValueError(f"bundle_adjust: unknown assembly {assembly!r}")
     K = R_cw.shape[0]
@@ -124,7 +125,7 @@ def bundle_adjust(project_fn, project_jac_fn,
             project_jac_fn, project_fn, R_all[obs_pose], t_all[obs_pose],
             X_all[obs_lm], obs_uv, ur_obs=obs_ur, bf=bf)
         chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
-        valid = obs_mask * lm_mask[obs_lm] * (p[:, 2] > 1e-3)
+        valid = obs_mask * lm_mask[obs_lm] * robust.cheirality(p, wide_fov)
         w = inv_sigma2 * valid
         if use_huber:
             w = w * robust.huber_weight(chi2, huber_delta)

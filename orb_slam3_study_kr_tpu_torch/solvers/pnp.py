@@ -49,16 +49,22 @@ def minimal_sets(uniforms, mask, m):
 
 
 def ransac_pnp(project_fn, project_jac_fn, K, X, uv, level, mask, uniforms,
-               min_inliers=15):
+               min_inliers=15, bearings=None):
     """Pose from 2D-3D matches with no prior (Relocalization's solver).
 
-    X (N, 3) world points, uv (N, 2) ideal pixels, level (N,), mask (N,)
-    float, uniforms (iters, N) the RANSAC draws.  Returns dict(R, t,
-    inliers, n_inliers, success), all tensors (nothing leaves the
-    device)."""
-    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
-    xn = torch.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy], -1)
-    bearings = torch.cat([xn, torch.ones_like(xn[:, :1])], -1)
+    X (N, 3) world points, uv (N, 2) pixels in project_fn's convention,
+    level (N,), mask (N,) float, uniforms (iters, N) the RANSAC draws.
+    ``bearings`` (N, 3): the unprojected rays of a non-pinhole model (KB8
+    fisheye, where the reference's MLPnP likewise works on bearings) for
+    the minimal DLT and the cheirality along the ray; they also select the
+    wide-FOV cheirality of the GN polish.  Without them the rays are the
+    pinhole normalization by K.  Returns dict(R, t, inliers, n_inliers,
+    success), all tensors (nothing leaves the device)."""
+    wide_fov = bearings is not None
+    if bearings is None:
+        fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+        xn = torch.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy], -1)
+        bearings = torch.cat([xn, torch.ones_like(xn[:, :1])], -1)
     b = bearings / torch.clamp(torch.linalg.norm(bearings, dim=-1, keepdim=True),
                                min=1e-12)
     sets = minimal_sets(torch.as_tensor(uniforms, dtype=X.dtype, device=X.device),
@@ -76,6 +82,7 @@ def ransac_pnp(project_fn, project_jac_fn, K, X, uv, level, mask, uniforms,
 
     w = inl[best].to(X.dtype) * mask
     R_f, t_f, inliers, n_inl = optimize_pose(
-        project_fn, project_jac_fn, R_h[best], t_h[best], X, uv, level, w)
+        project_fn, project_jac_fn, R_h[best], t_h[best], X, uv, level, w,
+        wide_fov=wide_fov)
     return dict(R=R_f, t=t_f, inliers=inliers, n_inliers=n_inl,
                 success=n_inl >= min_inliers)

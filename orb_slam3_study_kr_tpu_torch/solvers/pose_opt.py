@@ -19,13 +19,14 @@ ITERS_PER_ROUND = 10
 
 
 def optimize_pose(project_fn, project_jac_fn, R_cw, t_cw, X, uv_obs, level,
-                  mask, damping=1e-3, ur_obs=None, bf=None):
+                  mask, damping=1e-3, ur_obs=None, bf=None, wide_fov=False):
     """Optimize one camera pose against fixed landmarks.
 
     R_cw (3, 3), t_cw (3); X (N, 3); uv_obs (N, 2); level (N,); mask (N,)
     float weights (1.0 for real observations).  ur_obs (N,) with bf =
     fx * baseline adds the stereo row on observations with ur_obs >= 0,
-    gated at chi2 7.815 with Huber delta sqrt(7.815) there.
+    gated at chi2 7.815 with Huber delta sqrt(7.815) there.  ``wide_fov``
+    selects the fisheye cheirality (``robust.cheirality``).
     Returns (R, t, inlier_mask (N,) bool, n_inliers)."""
     inv_sigma2 = robust.octave_inv_sigma2(level)
     if ur_obs is None:
@@ -53,7 +54,7 @@ def optimize_pose(project_fn, project_jac_fn, R_cw, t_cw, X, uv_obs, level,
             w = inv_sigma2 * mask * inlier
             if use_huber:
                 w = w * robust.huber_weight(chi2, huber_delta)
-            w = w * (p[:, 2] > 1e-3)
+            w = w * robust.cheirality(p, wide_fov)
             H = torch.einsum("nia,n,nib->ab", J_pose, w, J_pose)
             b = torch.einsum("nia,n,ni->a", J_pose, w, r)
             H = H + damping * eye6
@@ -68,6 +69,6 @@ def optimize_pose(project_fn, project_jac_fn, R_cw, t_cw, X, uv_obs, level,
             t = torch.where(better, t_new, t)
         r, _, _, p = residuals(R, t)
         chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
-        inlier = ((chi2 <= chi2_gate) & (p[:, 2] > 1e-3)).to(R.dtype)
+        inlier = ((chi2 <= chi2_gate) & robust.cheirality(p, wide_fov)).to(R.dtype)
     inlier_b = (inlier > 0) & (mask > 0)
     return R, t, inlier_b, inlier_b.sum()

@@ -19,3 +19,12 @@ def octave_inv_sigma2(level, scale_factor=1.2):
     """Information weight per pyramid level: scale_factor^(-2 level)."""
     base = torch.tensor(scale_factor, dtype=torch.float32, device=level.device)
     return torch.pow(base, -2.0 * level.to(torch.float32))
+
+
+def cheirality(p, wide_fov):
+    """Camera points (..., 3) a solver weighs: z > 1e-3 in front of a
+    pinhole camera; with ``wide_fov`` (fisheye) |p| > 1e-3, so points past
+    90 degrees off-axis keep their weight."""
+    if wide_fov:
+        return torch.linalg.norm(p, dim=-1) > 1e-3
+    return p[..., 2] > 1e-3

@@ -107,8 +107,11 @@ def _pyramid(dev, sizes, seed=0):
 
 
 @pytest.mark.parametrize("sizes", [orb.OrbConfig().level_sizes,
+                                   orb.OrbConfig(height=512,
+                                                 width=512).level_sizes,
                                    ((7, 7), (33, 47), (65, 33))],
-                         ids=["752x480_pyramid", "odd_sizes"])
+                         ids=["752x480_pyramid", "512x512_pyramid",
+                              "odd_sizes"])
 def test_k1_pyramid_matches_plain(dev, sizes):
     """One launch over all levels against the per-level plain version:
     score and NMS maps exact (interior and border), blur within 1e-4."""

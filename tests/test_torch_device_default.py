@@ -2,13 +2,14 @@
 object (a Frame too) and vocabulary entry point built with the default
 device raises without a card, and the same calls with device="cpu" run."""
 
+import dataclasses
 import inspect
 
 import numpy as np
 import pytest
 import torch
 
-from orb_slam3_study_kr_tpu_torch import convert
+from orb_slam3_study_kr_tpu_torch import cameras, convert
 from orb_slam3_study_kr_tpu_torch.bow import KeyframeDatabase
 from orb_slam3_study_kr_tpu_torch.bow import vocabulary as voc_mod
 from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
@@ -17,13 +18,16 @@ from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
 from orb_slam3_study_kr_tpu_torch.imu import ImuCalib
 from orb_slam3_study_kr_tpu_torch.pipeline.global_ba import global_bundle_adjustment
 from orb_slam3_study_kr_tpu_torch.pipeline.inertial_tracking import (
-    InertialTracker, RgbdInertialTracker, StereoInertialTracker)
+    FisheyeStereoInertialTracker, InertialTracker, RgbdInertialTracker,
+    StereoInertialTracker)
 from orb_slam3_study_kr_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam3_study_kr_tpu_torch.pipeline.loop_closing import LoopCloser
 from orb_slam3_study_kr_tpu_torch.pipeline.map_merging import MapMerger
-from orb_slam3_study_kr_tpu_torch.pipeline.stereo_tracking import StereoTracker
+from orb_slam3_study_kr_tpu_torch.pipeline.stereo_tracking import (
+    FisheyeStereoTracker, StereoTracker)
 from orb_slam3_study_kr_tpu_torch.pipeline.tracking import MonoTracker, TrackerConfig
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import MapState
+from test_torch_fisheye_cuda import KB8, kb8_kw
 
 torch.set_num_threads(2)
 
@@ -59,6 +63,16 @@ def _session(device, **kw):
     return slam
 
 
+def _kb8(cfg):
+    """The same config with the TUM-VI 512x512 fisheye lens."""
+    return dataclasses.replace(cfg, **kb8_kw())
+
+
+def _kb8_session(cfg, sensor):
+    return _session(cfg.device, sensor=sensor, tracker=_kb8(cfg),
+                    stereo_t_rl=(-0.1, 0.0, 0.0))
+
+
 def _dbow2(tmp_path):
     path = tmp_path / "voc.txt"
     with open(path, "w") as f:
@@ -88,6 +102,17 @@ BUILDS = {
         cfg.device, sensor="stereo-inertial"),
     "SlamSystem(rgbd-inertial)": lambda cfg, tmp: _session(
         cfg.device, sensor="rgbd-inertial"),
+    "TrackerConfig(kb8)": lambda cfg, tmp: _kb8(cfg).ideal_params,
+    "make_kb8": lambda cfg, tmp: cameras.make_kb8(
+        *KB8, device=cfg.device).params,
+    "FisheyeStereoTracker": lambda cfg, tmp: FisheyeStereoTracker(
+        _kb8(cfg), _map()),
+    "FisheyeStereoInertialTracker": lambda cfg, tmp:
+        FisheyeStereoInertialTracker(_kb8(cfg), _map()),
+    "SlamSystem(kb8 mono)": lambda cfg, tmp: _kb8_session(cfg, "mono"),
+    "SlamSystem(kb8 stereo)": lambda cfg, tmp: _kb8_session(cfg, "stereo"),
+    "SlamSystem(kb8 stereo-inertial)": lambda cfg, tmp: _kb8_session(
+        cfg, "stereo-inertial"),
     "LocalMapper": lambda cfg, tmp: LocalMapper(cfg=cfg, map=_map()),
     "LoopCloser": lambda cfg, tmp: LoopCloser(cfg=cfg, map=_map(), db=_db()),
     "MapMerger": lambda cfg, tmp: MapMerger(cfg=cfg),
@@ -113,6 +138,8 @@ def test_tracker_config_defaults_to_the_card():
     assert inspect.signature(Frame).parameters["device"].default == "cuda"
     assert inspect.signature(AsyncMapping).parameters["device"].default == "cuda"
     assert inspect.signature(ImuCalib.make).parameters["device"].default == "cuda"
+    for fn in (cameras.make_kb8, cameras.make_pinhole):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     for fn in (voc_mod.train_vocabulary, voc_mod.load_vocabulary,
                voc_mod.load_dbow2_text, voc_mod.vocabulary_from_arrays,
                convert.vocabulary_from_numpy):

@@ -315,6 +315,9 @@ def test_port_imports_no_jax():
             "import orb_slam3_study_kr_tpu_torch.solvers.inertial\n"
             "import orb_slam3_study_kr_tpu_torch.solvers.inertial_ba\n"
             "import orb_slam3_study_kr_tpu_torch.pipeline.inertial_tracking\n"
+            "import orb_slam3_study_kr_tpu_torch.cameras.kb8\n"
+            "import orb_slam3_study_kr_tpu_torch.cameras.camera\n"
+            "import orb_slam3_study_kr_tpu_torch.ops.fisheye_stereo\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('orb_slam3_study_kr_tpu.'))\n"
             "assert not bad, bad\n"
@@ -337,20 +340,22 @@ def test_cuda_device_without_cuda_raises():
 
 @pytest.mark.parametrize("kw", [
     dict(enable_loop_closing=True, ba_devices=2),
-    dict(sensor="stereo-inertial", tracker=TrackerConfig(camera_model="kb8")),
+    dict(sensor="stereo-inertial",
+         tracker=TrackerConfig(camera_model="kb8", ambig_obs_weight=0.5)),
     dict(sensor="rgbd-inertial", tracker=TrackerConfig(patch_zncc_min=0.5)),
-    dict(sensor="stereo", tracker=TrackerConfig(camera_model="kb8")),
+    dict(sensor="stereo",
+         tracker=TrackerConfig(camera_model="kb8", refkf_anchor=True)),
     dict(sensor="mono-inertial", tracker=TrackerConfig(klt_refine=False)),
-    dict(tracker=TrackerConfig(camera_model="kb8")),
+    dict(tracker=TrackerConfig(camera_model="kb8", klt_refine=False)),
 ], ids=["loop_closing", "stereo_inertial", "rgbd_inertial", "kb8_stereo",
         "mono_inertial", "kb8"])
 def test_unported_routes_raise(kw):
-    """Loop closing, rectified stereo, RGB-D, the async worker and the
-    inertial sensors are ported; the multi-device global BA (item 19), the
-    fisheye model and rig (item 16, the KB8 stereo-inertial rig of TUM-VI
-    among them) and the KLT-off and patch-ZNCC tracker knobs (item 12a)
-    raise, naming their ROADMAP item, with an inertial sensor as
-    without."""
+    """Loop closing, rectified stereo, RGB-D, the async worker, the
+    inertial sensors and the fisheye lens (mono, the non-rectified rig and
+    the TUM-VI stereo-inertial rig) are ported; the multi-device global BA
+    (item 19) and the tracker knobs of item 12a (KLT off, refkf_anchor,
+    patch ZNCC, ambiguous-observation weights) raise, naming their ROADMAP
+    item, with a fisheye or an inertial sensor as without."""
     cfg = dict(enable_loop_closing=False, device="cpu")
     cfg.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -414,12 +419,45 @@ def test_config_conversion_from_reference_fields():
     assert ts.async_mapping and ts.async_max_pending == 2
 
 
+def test_config_conversion_fisheye_rig():
+    """The TUM-VI stereo-inertial rig converts: the left and right KB8
+    trackers, stereo_R_rl / stereo_t_rl as tuples; the session it builds on
+    the CPU is the fisheye stereo-inertial tracker with that extrinsic, the
+    right lens on the session's device and bf kept at 0; a carried last
+    frame keeps its stereo points."""
+    kb8 = dict(width=512, height=512, fx=190.978, fy=190.973, cx=254.932,
+               cy=256.897, dist=(0.0035, 0.0007, -0.002, 0.0002),
+               camera_model="kb8")
+    R_rl = np.eye(3, dtype=np.float32)
+    js = JSystemConfig(sensor="stereo-inertial", tracker=JTrackerConfig(**kb8),
+                       tracker_right=JTrackerConfig(**dict(kb8, fx=191.5)),
+                       stereo_R_rl=R_rl, stereo_t_rl=(-0.1, 0.0, 0.0))
+    ts = convert.system_config_from_dict(dataclasses.asdict(js), device="cpu")
+    assert ts.stereo_t_rl == (-0.1, 0.0, 0.0)
+    assert ts.stereo_R_rl == tuple(tuple(r) for r in R_rl.tolist())
+    assert ts.tracker.camera_model == ts.tracker_right.camera_model == "kb8"
+    assert ts.tracker_right.fx == 191.5
+    ts.enable_loop_closing = False
+    tr = SlamSystem(ts).tracker
+    assert type(tr).__name__ == "FisheyeStereoInertialTracker"
+    assert tr.cfg.bf == 0.0 and tr.cfg_right.fx == 191.5
+    assert tr.cfg_right.cam_params.device.type == "cpu"
+    np.testing.assert_allclose(tr.t_rl, [-0.1, 0.0, 0.0])
+    assert abs(tr.baseline - 0.1) < 1e-7
+    pc = np.arange(12, dtype=np.float32).reshape(4, 3)
+    convert.tracker_state_from_numpy(
+        tr, {}, dict(frame_id=3, timestamp=0.3, kp_lm=np.full(4, -1),
+                     R_cw=np.eye(3), t_cw=np.zeros(3), stereo_pc=pc),
+        None, -1, [])
+    np.testing.assert_array_equal(tr.last_frame.stereo_pc, pc)
+
+
 def test_config_conversion_reference_only_fields():
     """The table of reference fields the port lacks holds the reference's
     own defaults and, with the port's fields, covers every reference field.
     Such a field converts at its default and raises with any other value,
-    as does a key neither config has.  The IMU settings are port fields
-    and convert at any value."""
+    as does a key neither config has.  The IMU settings and the fisheye
+    lens limits are port fields and convert at any value."""
     for jcls, tcls in ((JTrackerConfig, TrackerConfig),
                        (JSystemConfig, SystemConfig)):
         table = convert.REFERENCE_ONLY[tcls.__name__]
@@ -433,8 +471,9 @@ def test_config_conversion_reference_only_fields():
         device="cpu")
     assert (ts.sensor, ts.imu_freq, ts.imu_init_times) == (
         "mono-inertial", 100.0, (1.0, 2.0, 3.0))
-    with pytest.raises(ValueError, match="fov_max_deg"):
-        convert.tracker_config_from_dict(
-            dataclasses.asdict(JTrackerConfig(fov_max_deg=60.0)))
+    tt = convert.tracker_config_from_dict(dataclasses.asdict(JTrackerConfig(
+        camera_model="kb8", fov_max_deg=60.0, fisheye_half_fov_deg=95.0)))
+    assert (tt.camera_model, tt.fov_max_deg, tt.fisheye_half_fov_deg) == (
+        "kb8", 60.0, 95.0)
     with pytest.raises(ValueError, match="no_such_field"):
         convert.tracker_config_from_dict({"fps": 10, "no_such_field": 1})
