@@ -65,11 +65,26 @@ the int8 tensor-core rate of 1979 T/s).
      match_stereo_fisheye on the first pair on the card against the same
      call on the CPU; two K1 launches per frame;
  18. the TUM-VI stereo-inertial rig: 40 frames of the inertial tests' path
-     (seed 13) over a KB8 world through track_stereo(imu=).
+     (seed 13) over a KB8 world through track_stereo(imu=);
+ 19. the dataset drivers, from files written into a temporary directory
+     (PNGs and a calibration YAML):
+     a. a rectified EuRoC stereo-inertial rig (752x480, baseline 0.11,
+        Camera.bf = fx x 0.11, 200 Hz imu0, ground truth CSV; PNG rows
+        with libpng's default filter choice, mostly Average and Paeth) on
+        the inertial tests' path (seed 13, 40 frames) through run_euroc's
+        command line (parse_args, build_system, run); the TUM file it
+        writes is read back against the ground truth CSV, and seq.image,
+        the decode of a pair, is timed apart;
+     b. test_multisequence_session's two EuRoC mono sequences (seed 6, 18 +
+        18 frames, 100 s apart, PNGs from the port's filter-0 encoder)
+        through run_euroc.run_sequence with the upload_image lookahead:
+        the timestamp jump spawns a map; the uploaded image's keypoints
+        equal the host array's; the four trajectory writers,
+        print_time_stats and a FrameDrawer overlay.
 Phase 8 also relocalizes a view of frame 20 with 96 % of its descriptors
 randomized: it fails the first pass's 50-inlier acceptance, so the
 widening re-search runs (one K2 launch per pass).
-Phases 6-18 are the main paths: each resets the kernels' launch counters
+Phases 6-19 are the main paths: each resets the kernels' launch counters
 just before it and reads them just after; the kernels line sums them.
 Their frames are rendered by worker processes, one per path, while the
 kernels build (render_scenario), with the seeds and in the order each
@@ -87,6 +102,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -472,12 +488,17 @@ N_BLACK, N_REPLAY = 14, 26      # the Atlas phase's noise and replay frames
 RELOC_KEEP = 0.04               # descriptors kept in the re-search view
 SCENARIOS = ("loop_off", "default", "atlas", "stereo", "rgbd", "async",
              "mono_inertial", "rgbd_inertial", "fisheye_mono",
-             "fisheye_stereo", "fisheye_inertial")
+             "fisheye_stereo", "fisheye_inertial", "driver_si", "driver_mono")
 # test_mono_inertial_pipeline (seed 11, 60 frames) and
 # test_rgbd_inertial_pipeline (seed 13, 50 frames): one excited trajectory
-# with its 200 Hz IMU stream, the init schedule (2.5, 4.0, 5.0) s.
+# with its 200 Hz IMU stream, the init schedule (2.5, 4.0, 5.0) s; phase
+# 19a's rectified stereo-inertial rig flies the seed-13 path.
 INERTIAL = {"mono_inertial": (11, 60), "rgbd_inertial": (13, 50),
-            "fisheye_inertial": (13, 40)}
+            "fisheye_inertial": (13, 40), "driver_si": (13, 40)}
+# Phase 19b: test_multisequence_session's world and path (seed 6), 18 + 18
+# frames, the second sequence 100 s after the first.
+DRIVER_MONO = (6, 18, (10.0, 110.0))
+EUROC_T0_NS = 1403636579763555584      # EuRoC MH_01_easy's first cam0 stamp
 IMU_INIT_TIMES = (2.5, 4.0, 5.0)
 # TUM-VI's 512x512 Kannala-Brandt lens (tests/test_fisheye_pipeline.py) and
 # its stereo rig's extrinsic: p_right = p_left + T_RL.
@@ -584,6 +605,10 @@ def render_scenario(name):
                 t_r = t[i] + np.asarray(T_RL, np.float32)
                 frames.append((render(world, R[i], t[i], rng=rng),
                                render(world, R[i], t_r, rng=rng)))
+            elif name == "driver_si":
+                _, t_r = synthetic.stereo_right_pose(R[i], t[i], BASELINE)
+                frames.append((render(world, R[i], t[i], rng=rng),
+                               render(world, R[i], t_r, rng=rng)))
             else:
                 img, depth = render(world, R[i], t[i], rng=rng,
                                     return_depth=True)
@@ -591,6 +616,13 @@ def render_scenario(name):
         return dict(world=world, R_gt=R, t_gt=t, frames=frames,
                     imu=traj["imu"], timestamps=traj["timestamps"],
                     bias=traj["bias"])
+    elif name == "driver_mono":
+        seed, n, _ = DRIVER_MONO
+        rng = np.random.default_rng(seed)
+        world = synthetic.make_textured_world(rng, depth=6.0)
+        R, t = synthetic.lateral_trajectory(2 * n, x_span=1.6, z_span=0.0,
+                                            y_amp=0.05)
+        frames = [render(world, R[i], t[i], rng=rng) for i in range(2 * n)]
     else:
         raise ValueError(f"unknown scenario {name!r}")
     return dict(world=world, R_gt=R, t_gt=t, frames=frames)
@@ -1156,6 +1188,17 @@ def phase_async(dev, scen, sync_warm_ms):
     return dict(r, worker=worker, sync_frame_ms_median_warm=sync_warm_ms)
 
 
+def _round_medians(t_ms, stages, rounds):
+    """The frame times (ms) of the fused frames after the first five and of
+    the split frames, frames whose IMU stage changed left out."""
+    import numpy as np
+    st, rd = np.asarray(stages), np.asarray(rounds)
+    steady = np.r_[False, st[1:] == st[:-1]]
+    warm = np.arange(len(st)) >= 5
+    return (t_ms[warm & steady & (rd[:, 0] > 0) & (rd[:, 1] == 0)],
+            t_ms[steady & (rd[:, 1] > 0) & (rd[:, 0] == 0)])
+
+
 def _inertial_session(dev, scen, sensor, tracker=None, **cfg_kw):
     """One inertial session through its public entry point (imu= rows per
     frame), launch counters reset around it; per-frame times kept apart by
@@ -1211,11 +1254,8 @@ def _inertial_session(dev, scen, sensor, tracker=None, **cfg_kw):
         raise AssertionError(f"{sensor}: K2 launched {k2} times over {fused} "
                              f"fused and {split} split frames")
     t_ms = np.asarray(slam.timings) * 1e3
-    st, rd = np.asarray(stages), np.asarray(rounds)
-    steady = np.r_[False, st[1:] == st[:-1]]
-    warm = np.arange(n) >= 5
-    before = t_ms[warm & steady & (rd[:, 0] > 0) & (rd[:, 1] == 0)]
-    after = t_ms[steady & (rd[:, 1] > 0) & (rd[:, 0] == 0)]
+    st = np.asarray(stages)
+    before, after = _round_medians(t_ms, stages, rounds)
     summ = tr.timers.summary()
     imu_init = {k: dict(n=v["n"], median_ms=v["median_ms"], max_ms=v["max_ms"])
                 for k, v in summ.items() if k.startswith("imu/init")}
@@ -1433,6 +1473,356 @@ def phase_fisheye_inertial(dev, scen):
     return r
 
 
+def _u8(img):
+    import numpy as np
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _encode_png_adaptive(img):
+    """uint8 (H, W) -> PNG bytes with the filter choice libpng makes by
+    default (the writer behind the datasets' files): each row takes the
+    filter whose residuals, read as signed bytes, have the least absolute
+    sum.  On rendered frames that is mostly Average and Paeth, the filters
+    whose bytes depend on the reconstructed byte to their left.  Returns
+    (bytes, rows per filter)."""
+    import struct
+    import zlib
+    import numpy as np
+    x = img.astype(np.int32)
+    h = x.shape[0]
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    res = (x[None] - np.stack([0 * x, a, b, (a + b) >> 1, paeth])) % 256
+    f = np.minimum(res, 256 - res).sum(-1).argmin(0)
+    raw = np.concatenate([f[:, None], res[f, np.arange(h)]],
+                         1).astype(np.uint8)
+
+    def chunk(ctype, body):
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", x.shape[1], h, 8, 0, 0, 0, 0)
+    data = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+    return data, np.bincount(f, minlength=5)
+
+
+def _write_mav0(root, t_ns, frames, imu=None, centres=None,
+                libpng_rows=True):
+    """A EuRoC ``mav0`` folder: cam0 (and cam1 for pairs) PNGs and their
+    data.csv, imu0/data.csv from the per-frame rows [dt, acc, gyro]
+    covering (t_{i-1}, t_i], and the ground truth's positions at the frame
+    stamps.  The PNGs carry libpng's filter choice
+    (``_encode_png_adaptive``), or with ``libpng_rows=False`` the port's
+    own filter-0 encoder's rows.  Returns the seconds spent encoding and
+    the PNG rows per filter."""
+    import numpy as np
+    from orb_slam3_study_kr_tpu_torch.io import png
+    t0 = time.perf_counter()
+    filters = np.zeros(5, np.int64)
+    cams = ("cam0", "cam1")[:len(frames[0])]
+    for c, cam in enumerate(cams):
+        os.makedirs(os.path.join(root, cam, "data"))
+        with open(os.path.join(root, cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            for ns, fr in zip(t_ns, frames):
+                img = _u8(fr[c])
+                if libpng_rows:
+                    data, rows = _encode_png_adaptive(img)
+                else:
+                    data, rows = png.encode_png(img), [len(img), 0, 0, 0, 0]
+                path = os.path.join(root, cam, "data", f"{ns}.png")
+                with open(path, "wb") as g:
+                    g.write(data)
+                filters += rows
+                f.write(f"{ns},{ns}.png\n")
+    secs = time.perf_counter() - t0
+    if imu is not None:
+        os.makedirs(os.path.join(root, "imu0"))
+        with open(os.path.join(root, "imu0", "data.csv"), "w") as f:
+            f.write("#timestamp [ns],w_RS_S_x [rad s^-1],w_RS_S_y [rad s^-1],"
+                    "w_RS_S_z [rad s^-1],a_RS_S_x [m s^-2],a_RS_S_y [m s^-2],"
+                    "a_RS_S_z [m s^-2]\n")
+            for i in range(1, len(t_ns)):
+                stamps = t_ns[i - 1] + np.rint(
+                    np.cumsum(imu[i][:, 0]) * 1e9).astype(np.int64)
+                for ns, row in zip(stamps, imu[i]):
+                    f.write(f"{ns}," + ",".join(
+                        repr(float(x)) for x in (*row[4:7], *row[1:4])) + "\n")
+    if centres is not None:
+        os.makedirs(os.path.join(root, "state_groundtruth_estimate0"))
+        with open(os.path.join(root, "state_groundtruth_estimate0",
+                               "data.csv"), "w") as f:
+            f.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], "
+                    "q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z []\n")
+            for ns, p in zip(t_ns, centres):
+                f.write(f"{ns}," + ",".join(repr(float(x)) for x in p)
+                        + ",1.0,0.0,0.0,0.0\n")
+    return secs, filters.tolist()
+
+
+# Phase 19a's calibration: the synthetic camera (TrackerConfig's defaults),
+# a rectified rig of baseline 0.11 (Camera.bf = fx x 0.11: with bf > 0 the
+# IMU init fixes the scale), the synthetic IMU's noise densities and an
+# identity body <- camera extrinsic (the synthetic body is the camera).
+DRIVER_YAML = """%YAML:1.0
+File.version: "1.0"
+Camera.type: "PinHole"
+Camera1.fx: 458.0
+Camera1.fy: 457.0
+Camera1.cx: 376.0
+Camera1.cy: 240.0
+Camera1.k1: 0.0
+Camera1.k2: 0.0
+Camera1.p1: 0.0
+Camera1.p2: 0.0
+Camera.width: 752
+Camera.height: 480
+Camera.fps: 10
+Camera.bf: {bf!r}
+Stereo.ThDepth: 40.0
+ORBextractor.nFeatures: 1000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+IMU.T_b_c1: !!opencv-matrix
+  rows: 4
+  cols: 4
+  dt: f
+  data: [1.0, 0.0, 0.0, 0.0,
+         0.0, 1.0, 0.0, 0.0,
+         0.0, 0.0, 1.0, 0.0,
+         0.0, 0.0, 0.0, 1.0]
+IMU.NoiseGyro: 1.7e-4
+IMU.NoiseAcc: 2.0e-3
+IMU.GyroWalk: 1.9e-5
+IMU.AccWalk: 3.0e-3
+IMU.Frequency: 200.0
+"""
+
+
+def phase_driver_stereo_inertial(dev, scen, tmp):
+    """19a: the rectified stereo-inertial rig through run_euroc's command
+    line (parse_args, build_system from the YAML, run: the IMU windows from
+    imu0/data.csv, the TUM file), then the TUM file read back against the
+    ground truth CSV."""
+    import numpy as np
+    import torch
+    from orb_slam3_study_kr_tpu_torch.evaluation import ate_rmse
+    from orb_slam3_study_kr_tpu_torch.examples import run_euroc
+    from orb_slam3_study_kr_tpu_torch.io.datasets import load_euroc
+    frames, n = scen["frames"], len(scen["frames"])
+    root = os.path.join(tmp, "si", "mav0")
+    t_ns = [EUROC_T0_NS + i * 100_000_000 for i in range(n)]
+    write_s, filters = _write_mav0(root, t_ns, frames, imu=scen["imu"],
+                                   centres=_centers(scen["R_gt"], scen["t_gt"]))
+    yaml = os.path.join(tmp, "euroc_stereo_inertial.yaml")
+    with open(yaml, "w") as f:
+        f.write(DRIVER_YAML.format(bf=458.0 * BASELINE))
+    traj = os.path.join(tmp, "si_tum.txt")
+    args = run_euroc.parse_args([root, "--sensor", "stereo-inertial",
+                                 "--settings", yaml, "--out", traj,
+                                 "--device", str(dev)])
+    slam = run_euroc.build_system(args)
+    tr = slam.tracker
+    if not (slam.cfg.tracker.bf > 0 and slam.cfg.tracker.n_features == 1000
+            and slam.cfg.tracker.orb_n_levels == 8):
+        raise AssertionError(f"driver config {slam.cfg.tracker}")
+    stages, rounds, track = [], [], slam.track_stereo
+
+    def recorded(*a, **kw):
+        """track_stereo, noting the IMU stage and the rounds each frame took."""
+        keys = ("fused_frames", "split_frames")
+        before = [slam.tracker.stats.get(k, 0) for k in keys]
+        frame = track(*a, **kw)
+        stages.append(slam.tracker.imu_stage)
+        rounds.append([slam.tracker.stats.get(k, 0) - b
+                       for k, b in zip(keys, before)])
+        return frame
+
+    slam.track_stereo = recorded
+    with _Launches() as counter:
+        t0 = time.perf_counter()
+        run_euroc.run(args, slam)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if slam.tracker is not tr:
+        raise AssertionError("the session spawned a map")
+    rows = np.loadtxt(traj, ndmin=2)
+    seq = load_euroc(root)
+    # The driver decodes a pair per frame before tracking it: time
+    # seq.image (file read, inflate, the filters' reversal) apart.
+    decode_ms = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        seq.image(i, 0), seq.image(i, 1)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    metric, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4], seq.gt_ts, seq.gt_pos,
+                             with_scale=False)
+    scale = tr.stats.get("imu_init_scale")
+    fused, split = tr.stats.get("fused_frames", 0), tr.stats.get("split_frames", 0)
+    k1, k2 = counter.counts["fast_nms_blur"], counter.counts["gated_nn"]
+    if tr.imu_stage < 1 or scale != 1.0:
+        raise AssertionError(f"driver stereo-inertial: IMU stage {tr.imu_stage},"
+                             f" init scale {scale} (bf > 0 fixes it to 1)")
+    if not (nm > 35 and metric < 0.25):
+        raise AssertionError(f"driver stereo-inertial: nm {nm} metric ATE "
+                             f"{metric}")
+    if k1 != 2 * n:
+        raise AssertionError(f"driver stereo-inertial: K1 launched {k1} times,"
+                             f" expected two per frame ({2 * n})")
+    if split < 1 or k2 < 4 * fused + 2 * split:
+        raise AssertionError(f"driver stereo-inertial: K2 launched {k2} times "
+                             f"over {fused} fused and {split} split frames")
+    t_ms = np.asarray(slam.timings) * 1e3
+    before, after = _round_medians(t_ms, stages, rounds)
+    r = dict(
+        state=slam.state.name, imu_stage=tr.imu_stage,
+        stage_at=int(np.argmax(np.asarray(stages) >= 1)), imu_init_scale=scale,
+        ate_metric=metric, nm=nm, n_rows=int(rows.shape[0]),
+        frame_ms_median_fused=float(np.median(before)) if before.size else None,
+        frame_ms_median_split=float(np.median(after)) if after.size else None,
+        n_fused_timed=int(before.size), n_split_timed=int(after.size),
+        fused_frames=fused, split_frames=split, launches=counter.counts,
+        wall_s=wall, png_write_s=write_s, png_filter_rows=filters,
+        png_decode_ms_median_pair=float(np.median(decode_ms)),
+        frame_ms=[float(x) for x in t_ms])
+    print(f"phase driver stereo-inertial (19a): run_euroc on {n} PNG pairs + "
+          f"imu0 + YAML, state {r['state']}, IMU stage {r['imu_stage']} "
+          f"(stage 1 at frame {r['stage_at']}), init scale {scale}; metric "
+          f"ATE {metric:.5f} over {nm} frames from the TUM file against the "
+          f"ground truth CSV; frame medians: fused "
+          f"{r['frame_ms_median_fused']} ms ({r['n_fused_timed']} frames), "
+          f"split {r['frame_ms_median_split']} ms ({r['n_split_timed']} "
+          f"frames); wall {wall:.2f} s (PNG writes {write_s:.2f} s, rows per "
+          f"filter None/Sub/Up/Average/Paeth {filters}; seq.image of a pair "
+          f"median {r['png_decode_ms_median_pair']:.2f} ms); launches "
+          f"{counter.counts} over {fused} fused and {split} split frames")
+    return r
+
+
+def phase_driver_mono(dev, scen, tmp):
+    """19b: two EuRoC mono sequences 100 s apart through one session by
+    run_euroc.run_sequence (the upload_image lookahead); the timestamp jump
+    stores the first map and spawns a second."""
+    import argparse
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from orb_slam3_study_kr_tpu_torch.examples import run_euroc
+    from orb_slam3_study_kr_tpu_torch.io.datasets import load_euroc
+    from orb_slam3_study_kr_tpu_torch.ops import orb
+    from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
+    from orb_slam3_study_kr_tpu_torch.pipeline.tracking import (TrackerConfig,
+                                                                TrackState)
+    from orb_slam3_study_kr_tpu_torch.viz import FrameDrawer
+    _, n, ts0 = DRIVER_MONO
+    frames = [(f,) for f in scen["frames"]]
+    roots = [os.path.join(tmp, f"seq{k + 1}", "mav0") for k in range(2)]
+    write_s = sum(_write_mav0(root, [int((t0 + i * 0.1) * 1e9) for i in range(n)],
+                              frames[k * n:(k + 1) * n], libpng_rows=False)[0]
+                  for k, (root, t0) in enumerate(zip(roots, ts0)))
+    slam = SlamSystem(SystemConfig(tracker=TrackerConfig(fps=10), min_kf_spawn=3,
+                                   device=str(dev)))
+    seqs = [load_euroc(root) for root in roots]
+    # upload_image: a tensor on the card whose extraction equals the host
+    # array's, key for key (outside the counted run).
+    img0 = seqs[0].image(0)
+    up = slam.upload_image(img0)
+    if not (up.device.type == dev.type and up.dtype == torch.float32):
+        raise AssertionError(f"upload_image gave {up.device} {up.dtype}")
+    ocfg = slam.cfg.tracker.orb_config
+    fa, fb = orb.extract_orb(up, ocfg), orb.extract_orb(
+        torch.as_tensor(img0, device=dev), ocfg)
+    same = {k: bool(torch.equal(getattr(fa, k), getattr(fb, k)))
+            for k in ("uv", "level", "angle", "desc", "valid")}
+    if not all(same.values()):
+        raise AssertionError(f"uploaded image's keypoints differ: {same}")
+    args = argparse.Namespace(sensor="mono", pace=False, max_frames=-1)
+    fused_per_frame, track = [], slam.track_monocular
+
+    def recorded(*a, **kw):
+        """track_monocular, noting whether the frame took the fused rounds
+        (the timestamp jump replaces the tracker and its counters)."""
+        tr = slam.tracker
+        before = tr.stats.get("fused_frames", 0)
+        frame = track(*a, **kw)
+        after = slam.tracker.stats.get("fused_frames", 0)
+        fused_per_frame.append(after - before if slam.tracker is tr else after)
+        return frame
+
+    slam.track_monocular = recorded
+    with _Launches() as counter:
+        t0 = time.perf_counter()
+        for seq in seqs:
+            run_euroc.run_sequence(slam, seq, args, inertial=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    resets = slam.sys_stats.get("n_ts_resets", 0)
+    if resets != 1 or slam.state != TrackState.OK:
+        raise AssertionError(f"driver mono: {resets} timestamp resets, state "
+                             f"{slam.state}")
+    rows, ids = slam.trajectory(with_map_ids=True)
+    if not (len(rows) > n and len(ids) == len(rows)
+            and np.isfinite(rows[:, 1:]).all()):
+        raise AssertionError(f"driver mono: {len(rows)} trajectory rows")
+    k1, k2 = counter.counts["fast_nms_blur"], counter.counts["gated_nn"]
+    fused = int(sum(fused_per_frame))
+    if k1 != 2 * n:
+        raise AssertionError(f"driver mono: K1 launched {k1} times, expected "
+                             f"one per frame ({2 * n})")
+    if fused < 1 or k2 < 4 * fused:
+        raise AssertionError(f"driver mono: K2 launched {k2} times over "
+                             f"{fused} fused frames")
+    lines = {}
+    for name in ("save_trajectory_tum", "save_trajectory_euroc",
+                 "save_trajectory_kitti", "save_keyframe_trajectory_tum"):
+        path = os.path.join(tmp, f"{name}.txt")
+        getattr(slam, name)(path)
+        with open(path) as f:
+            lines[name] = len(f.read().splitlines())
+    n_kf = int(slam.atlas.active_map.kf_valid.sum())
+    want = dict.fromkeys(lines, len(rows))
+    want["save_keyframe_trajectory_tum"] = n_kf
+    if lines != want:
+        raise AssertionError(f"driver mono: writer rows {lines}, expected {want}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        slam.print_time_stats()
+    if "track/extract" not in buf.getvalue():
+        raise AssertionError("print_time_stats printed no stage table")
+    last = seqs[1].image(n - 1)
+    overlay = FrameDrawer(slam).draw(last, slam.tracker.last_frame,
+                                     stats=slam.stats())
+    if not (overlay.dtype == np.uint8 and overlay.shape[1:] == (last.shape[1], 3)
+            and overlay.shape[0] > last.shape[0]):
+        raise AssertionError(f"FrameDrawer overlay {overlay.dtype} "
+                             f"{overlay.shape}")
+    warm = np.asarray(slam.timings[5:]) * 1e3
+    r = dict(state=slam.state.name, n_ts_resets=resets,
+             n_maps=len(slam.atlas.maps), map_ids=sorted(set(ids.tolist())),
+             n_rows=int(len(rows)), writer_rows=lines,
+             upload_equal=same, frame_ms_median_warm=float(np.median(warm)),
+             launches=counter.counts, fused_frames=fused, wall_s=wall,
+             png_write_s=write_s, overlay_shape=list(overlay.shape),
+             frame_ms=[float(x) for x in np.asarray(slam.timings) * 1e3])
+    print(f"phase driver mono (19b): two {n}-frame EuRoC sequences 100 s "
+          f"apart through run_sequence (upload_image lookahead), "
+          f"{resets} timestamp reset, {r['n_maps']} maps, state OK, "
+          f"{len(rows)} trajectory rows (map ids {r['map_ids']}); uploaded "
+          f"image's keypoints equal the host array's; writer rows {lines}; "
+          f"overlay {overlay.shape}; warm per-frame median "
+          f"{r['frame_ms_median_warm']:.2f} ms, wall {wall:.2f} s (PNG writes "
+          f"{write_s:.2f} s, the port's filter-0 encoder); launches "
+          f"{counter.counts} over {fused} fused frames")
+    return r
+
+
 def main(argv=None):
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1504,9 +1894,14 @@ def main(argv=None):
                                 scen["fisheye_stereo"])
     out["fisheye_inertial"] = run("fisheye_inertial", phase_fisheye_inertial,
                                   dev, scen["fisheye_inertial"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drivers_") as tmp:
+        out["driver_si"] = run("driver_si", phase_driver_stereo_inertial, dev,
+                               scen["driver_si"], tmp)
+        out["driver_mono"] = run("driver_mono", phase_driver_mono, dev,
+                                 scen["driver_mono"], tmp)
     paths = ("loop_off", "default", "reloc", "atlas", "loop", "stereo", "rgbd",
              "async", "mono_inertial", "rgbd_inertial", "fisheye_mono",
-             "fisheye_stereo", "fisheye_inertial")
+             "fisheye_stereo", "fisheye_inertial", "driver_si", "driver_mono")
     launches = {k: sum(out[p]["launches"][k] for p in paths)
                 for k in ("fast_nms_blur", "gated_nn", "hamming_nn")}
     kernels = []

@@ -138,6 +138,20 @@ def normalize_rotation(R):
     return (U * D[..., None, :]) @ Vt
 
 
+def quat_to_matrix(q):
+    """(..., 4) [w, x, y, z] quaternion, normalised first -> (..., 3, 3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
 def matrix_to_quat(R):
     """(..., 3, 3) -> (..., 4) [w, x, y, z], w >= 0 (Shepperd-style, best
     conditioned of the four candidates)."""

@@ -42,6 +42,7 @@ from orb_slam3_study_kr_tpu_torch.bow.vocabulary import (vocabulary_arrays,
                                                          vocabulary_checksum,
                                                          vocabulary_from_arrays)
 from orb_slam3_study_kr_tpu_torch.imu.preintegration import ImuCalib
+from orb_slam3_study_kr_tpu_torch.lie.so3 import matrix_to_quat, quat_to_matrix
 from orb_slam3_study_kr_tpu_torch.ops.track_match import match_by_descriptor
 from orb_slam3_study_kr_tpu_torch.pipeline.async_mapping import AsyncMapping
 from orb_slam3_study_kr_tpu_torch.pipeline.frame import Frame
@@ -692,6 +693,66 @@ class SlamSystem:
                 ts, x, y, z, qw, qx, qy, qz = r
                 f.write(f"{ts:.6f} {x:.7f} {y:.7f} {z:.7f} "
                         f"{qx:.7f} {qy:.7f} {qz:.7f} {qw:.7f}\n")
+
+    def save_trajectory_euroc(self, path):
+        """EuRoC format (System::SaveTrajectoryEuRoC): the TUM fields with
+        integer-nanosecond stamps."""
+        rows = self.trajectory()
+        with open(path, "w") as f:
+            for r in rows:
+                ts, x, y, z, qw, qx, qy, qz = r
+                f.write(f"{int(round(ts * 1e9))} {x:.7f} {y:.7f} {z:.7f} "
+                        f"{qx:.7f} {qy:.7f} {qz:.7f} {qw:.7f}\n")
+
+    def save_trajectory_kitti(self, path):
+        """KITTI format (System::SaveTrajectoryKITTI): per frame the 3x4
+        T_wc row-major, no timestamps; the rotation in float32."""
+        rows = self.trajectory()
+        with open(path, "w") as f:
+            for r in rows:
+                _, x, y, z, qw, qx, qy, qz = r
+                R = quat_to_matrix(torch.tensor([qw, qx, qy, qz],
+                                                dtype=torch.float32)).numpy()
+                vals = np.concatenate(
+                    [np.concatenate([R[i], [(x, y, z)[i]]]) for i in range(3)])
+                f.write(" ".join(f"{v:.9e}" for v in vals) + "\n")
+
+    def save_keyframe_trajectory_tum(self, path):
+        """The active map's keyframe poses in TUM format, by timestamp
+        (System::SaveKeyFrameTrajectoryTUM)."""
+        m = self.atlas.active_map
+        kfs = np.nonzero(m.kf_valid)[0]
+        order = np.argsort(m.kf_timestamp[kfs])
+        with open(path, "w") as f:
+            for k in kfs[order]:
+                R_wc = np.ascontiguousarray(np.asarray(m.kf_R[k], np.float32).T)
+                t = -(R_wc @ np.asarray(m.kf_t[k], np.float32))
+                q = matrix_to_quat(torch.as_tensor(R_wc)).numpy()
+                f.write(f"{m.kf_timestamp[k]:.6f} "
+                        f"{t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
+                        f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n")
+
+    def upload_image(self, img):
+        """A camera image as a tensor on the session's device, accepted by
+        every track_* entry in place of the host array: uint8 stays uint8,
+        any other dtype becomes float32.  On the card the copy goes through
+        pinned host memory, non-blocking, on the calling thread's current
+        stream, the stream the tracker extracts on, so that it overlaps host
+        work (decoding the next image) and is ordered before the extraction
+        that reads it.  A tensor moves to the device as it is (the same
+        tensor when it is there already)."""
+        if isinstance(img, torch.Tensor):
+            return img.to(self.device)
+        a = np.asarray(img)
+        host = torch.from_numpy(np.array(
+            a, np.uint8 if a.dtype == np.uint8 else np.float32))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def print_time_stats(self):
+        """The per-stage timing table (Tracking::PrintTimeStats)."""
+        print(self.tracker.timers.report())
 
     # ------------------------------------------------------------------
     # The npz layout of the reference's checkpoint, key for key, so that a

@@ -1,9 +1,12 @@
 """The port runs on the card unless the caller asks for the CPU: every
-object (a Frame too) and vocabulary entry point built with the default
-device raises without a card, and the same calls with device="cpu" run."""
+object (a Frame too), vocabulary entry point, driver's build_system and
+SlamSystem.upload_image built with the default device raises without a
+card, and the same calls with device="cpu" run."""
 
+import argparse
 import dataclasses
 import inspect
+import os
 
 import numpy as np
 import pytest
@@ -27,6 +30,9 @@ from orb_slam3_study_kr_tpu_torch.pipeline.stereo_tracking import (
     FisheyeStereoTracker, StereoTracker)
 from orb_slam3_study_kr_tpu_torch.pipeline.tracking import MonoTracker, TrackerConfig
 from orb_slam3_study_kr_tpu_torch.slam_map.map_state import MapState
+from orb_slam3_study_kr_tpu_torch.examples import run_euroc, run_kitti
+from orb_slam3_study_kr_tpu_torch.io import png
+from orb_slam3_study_kr_tpu_torch.io.datasets import load_kitti
 from test_torch_fisheye_cuda import KB8, kb8_kw
 
 torch.set_num_threads(2)
@@ -82,7 +88,50 @@ def _dbow2(tmp_path):
     return path
 
 
+STEREO_INERTIAL_YAML = """%YAML:1.0
+Camera.fx: 458.654
+Camera.fy: 457.296
+Camera.cx: 367.215
+Camera.cy: 248.375
+Camera.bf: 50.45
+IMU.NoiseGyro: 1.7e-4
+IMU.NoiseAcc: 2.0e-3
+IMU.GyroWalk: 1.9e-5
+IMU.AccWalk: 3.0e-3
+"""
+
+
+def _euroc_driver(device, tmp_path, sensor="mono"):
+    """run_euroc.build_system: the EuRoC defaults, or a stereo-inertial
+    YAML."""
+    settings = None
+    if sensor != "mono":
+        settings = tmp_path / "si.yaml"
+        settings.write_text(STEREO_INERTIAL_YAML)
+    return run_euroc.build_system(argparse.Namespace(
+        settings=settings and str(settings), sensor=sensor, vocabulary=None,
+        device=device))
+
+
+def _kitti_driver(device, tmp_path):
+    """run_kitti.build_system from a one-frame sequence's calib.txt."""
+    os.makedirs(tmp_path / "image_0", exist_ok=True)
+    png.write_png(tmp_path / "image_0" / "000000.png",
+                  np.zeros((48, 64), np.uint8))
+    (tmp_path / "times.txt").write_text("0.0\n")
+    (tmp_path / "calib.txt").write_text(
+        "P0: 400 0 32 0 0 400 24 0 0 0 1 0\n")
+    return run_kitti.build_system(load_kitti(str(tmp_path)), argparse.Namespace(
+        settings=None, sensor="mono", device=device))
+
+
 BUILDS = {
+    "run_euroc.build_system": lambda cfg, tmp: _euroc_driver(cfg.device, tmp),
+    "run_euroc.build_system(stereo-inertial)": lambda cfg, tmp: _euroc_driver(
+        cfg.device, tmp, "stereo-inertial"),
+    "run_kitti.build_system": lambda cfg, tmp: _kitti_driver(cfg.device, tmp),
+    "SlamSystem.upload_image": lambda cfg, tmp: _session(
+        cfg.device).upload_image(np.zeros((4, 4), np.uint8)),
     "Frame": lambda cfg, tmp: Frame(frame_id=0, timestamp=0.0, n_kp=4,
                                     device=cfg.device),
     "MonoTracker": lambda cfg, tmp: MonoTracker(cfg, _map()),

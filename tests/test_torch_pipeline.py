@@ -318,6 +318,15 @@ def test_port_imports_no_jax():
             "import orb_slam3_study_kr_tpu_torch.cameras.kb8\n"
             "import orb_slam3_study_kr_tpu_torch.cameras.camera\n"
             "import orb_slam3_study_kr_tpu_torch.ops.fisheye_stereo\n"
+            "import orb_slam3_study_kr_tpu_torch.io.png\n"
+            "import orb_slam3_study_kr_tpu_torch.io.settings\n"
+            "import orb_slam3_study_kr_tpu_torch.io.datasets\n"
+            "import orb_slam3_study_kr_tpu_torch.parity\n"
+            "import orb_slam3_study_kr_tpu_torch.viz\n"
+            "import orb_slam3_study_kr_tpu_torch.examples.run_euroc\n"
+            "import orb_slam3_study_kr_tpu_torch.examples.run_kitti\n"
+            "import orb_slam3_study_kr_tpu_torch.examples.run_synthetic\n"
+            "import orb_slam3_study_kr_tpu_torch.examples.ros_node\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('orb_slam3_study_kr_tpu.'))\n"
             "assert not bad, bad\n"
