@@ -41,10 +41,9 @@ from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig, TrackS
 
 
 # Fields of the reference configs that the port's configs do not have, with
-# the reference's default values (none at present).  The reference options
-# the port has but does not run yet (the item 12a tracker knobs) are fields
-# of the port's configs, which refuse non-default values when a session is
-# built.
+# the reference's default values (none at present: every field of the
+# reference's TrackerConfig and SystemConfig is a field of the port's, and
+# the port runs every value of each).
 REFERENCE_ONLY = {
     "TrackerConfig": {},
     "SystemConfig": {},
@@ -263,7 +262,8 @@ def session_map_from_numpy(slam, map_tables, vocabulary, ref_kf=None,
     slam.voc = vocabulary_from_numpy(vocabulary, device=slam.device)
     slam.db = KeyframeDatabase(slam.voc)
     slam.map_dbs = {m.map_id: slam.db}
-    slam.loop_closer = LoopCloser(cfg=slam.cfg.tracker, map=m, db=slam.db)
+    slam.loop_closer = LoopCloser(cfg=slam.cfg.tracker, map=m, db=slam.db,
+                                  ba_mesh=slam.ba_mesh)
     kfs = np.nonzero(m.kf_valid)[0]
     if database is None:
         for k in kfs:

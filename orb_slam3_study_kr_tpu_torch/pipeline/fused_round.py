@@ -1,10 +1,13 @@
 """The whole per-frame tracking slice as one torch function.
 
 Counterpart of ``orb_slam3_study_kr_tpu/pipeline/fused_round.py``
-(``fused_track_frame``, KLT on): a flow-anchor prologue with KLT
-verification and a pose pre-solve, a motion-model round with wide gates,
-the gated wide retry, then the local-map rounds.  Each round is match (K2)
--> KLT verify -> bind -> pose GN.  For stereo and RGB-D frames the right
+(``fused_track_frame``): a flow-anchor prologue with KLT verification and
+a pose pre-solve, a motion-model round with wide gates, the gated wide
+retry, then the local-map rounds.  Each round is match (K2) -> KLT verify
+-> bind -> pose GN; with ``use_klt=False`` (``TrackerConfig.klt_refine``
+off) a match binds unverified and no observation moves.  With ``ambig_w``
+< 1 a new binding whose KLT alignment is not distinctive enters the pose
+solve at that weight.  For stereo and RGB-D frames the right
 coordinate ``ur`` rides along: every pose solve gets the stereo row, and a
 KLT move of a keypoint with ur >= 0 shifts ur by the same du.  Every step
 runs on the device of its inputs with no host synchronisation; the gated
@@ -27,11 +30,13 @@ _BIG = 1 << 30
 
 def _flow_prologue(flow, blk_pos, blk_patch, kp_lm, kp_lm_pos, lm_mask,
                    f_uv, f_level, f_desc, f_valid, f_uv_raw, f_angle,
-                   pyr, level_wh, klt_zncc_min, klt_max_shift, flow_radius):
+                   pyr, level_wh, use_klt, klt_zncc_min, klt_max_shift,
+                   flow_radius):
     """Pose-free windowed descriptor match of the LAST frame's bound
     features against the current frame, first-wins on contested keypoints,
-    KLT photometric verification, then bind.  Positions and templates are
-    gathered from the candidate block by each feature's block row."""
+    KLT photometric verification (with ``use_klt``), then bind.  Positions
+    and templates are gathered from the candidate block by each feature's
+    block row."""
     (lf_uv, lf_desc, lf_angle, lf_bound, lf_gid, lf_row) = flow
     dev = f_uv.device
     lf_bound = lf_bound & (lf_row >= 0)
@@ -54,10 +59,9 @@ def _flow_prologue(flow, blk_pos, blk_patch, kp_lm, kp_lm_pos, lm_mask,
     cand_pos = lf_pos[src]
     cand_tmpl = lf_tmpl[src]
     mask = (cand_gid != NO_LM) & (kp_lm == NO_LM)
-    uv_ref, zncc, shift, _win, distinct = klt_refine(
-        pyr, level_wh, f_uv_raw, f_level, f_angle, cand_tmpl, mask,
-        max_shift=klt_max_shift)
-    good = mask & (zncc >= klt_zncc_min) & (shift < klt_max_shift)
+    uv_ref, distinct, good = _verify(use_klt, pyr, level_wh, f_uv_raw,
+                                     f_level, f_angle, cand_tmpl, mask,
+                                     klt_zncc_min, klt_max_shift)
     kp_lm = torch.where(good, cand_gid, kp_lm)
     kp_lm_pos = torch.where(good[:, None], cand_pos, kp_lm_pos)
     # Flow-bound landmarks leave the candidate block (row L = overflow).
@@ -70,6 +74,20 @@ def _flow_prologue(flow, blk_pos, blk_patch, kp_lm, kp_lm_pos, lm_mask,
     return kp_lm, kp_lm_pos, lm_mask, (uv_ref, distinct, good), good
 
 
+def _verify(use_klt, pyr, level_wh, f_uv_raw, f_level, f_angle, tmpl, mask,
+            klt_zncc_min, klt_max_shift):
+    """(uv_ref, distinct, good) of the candidate matches in ``mask``: KLT
+    alignment against their templates with ``use_klt``, else every
+    candidate unmoved, with distinctiveness -1."""
+    if not use_klt:
+        return f_uv_raw, torch.full(mask.shape, -1.0, device=mask.device), mask
+    uv_ref, zncc, shift, _win, distinct = klt_refine(
+        pyr, level_wh, f_uv_raw, f_level, f_angle, tmpl, mask,
+        max_shift=klt_max_shift)
+    return uv_ref, distinct, mask & (zncc >= klt_zncc_min) & (
+        shift < klt_max_shift)
+
+
 def _round(project_fn, project_jac_fn, undistort_fn, R, t,
            lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_desc, lm_mask,
            lm_gid, lm_patch, kp_lm, kp_lm_pos,
@@ -77,10 +95,13 @@ def _round(project_fn, project_jac_fn, undistort_fn, R, t,
            pyr, level_wh, width, height, th, nn_ratio, scale_factor,
            n_levels, level_slack, klt_zncc_min, klt_max_shift,
            klt_distinct_min, move_obs, ur=None, bf=None, apply_gate=None,
-           max_theta_deg=None, wide_fov=False):
+           max_theta_deg=None, wide_fov=False, use_klt=True, kp_w=None,
+           ambig_w=None):
     """One match -> KLT verify -> bind -> pose-GN round.  With
     ``apply_gate`` (a bool tensor) the round's effects apply only where it
-    is True."""
+    is True.  ``kp_w`` (N,) weighs each observation in the pose solve; with
+    ``ambig_w`` a new binding whose KLT alignment is not distinctive gets
+    that weight."""
     lm_slot, ok, visible = track_match.match_local_map(
         project_fn, R, t,
         lm_pos, lm_normal, lm_min_dist, lm_max_dist, lm_desc, lm_mask,
@@ -92,17 +113,22 @@ def _round(project_fn, project_jac_fn, undistort_fn, R, t,
             if apply_gate is None else apply_gate)
     free = kp_lm == NO_LM
     cand_ok = ok & free & gate
-    uv_ref, zncc, shift, _win, distinct = klt_refine(
-        pyr, level_wh, f_uv_raw, f_level, f_angle, lm_patch[lm_slot], cand_ok,
-        max_shift=klt_max_shift)
-    good = cand_ok & (zncc >= klt_zncc_min) & (shift < klt_max_shift)
+    uv_ref, distinct, good = _verify(use_klt, pyr, level_wh, f_uv_raw,
+                                     f_level, f_angle, lm_patch[lm_slot],
+                                     cand_ok, klt_zncc_min, klt_max_shift)
 
     kp_lm_new = torch.where(good, lm_gid[lm_slot], kp_lm)
     X = torch.where(good[:, None], lm_pos[lm_slot], kp_lm_pos)
     bound = (kp_lm_new != NO_LM) & f_valid
+    if kp_w is None:
+        kp_w = torch.ones(f_uv.shape[0], dtype=torch.float32, device=R.device)
+    if use_klt and ambig_w is not None:
+        w_new = torch.where(distinct >= klt_distinct_min,
+                            torch.ones_like(kp_w), torch.full_like(kp_w, ambig_w))
+        kp_w = torch.where(good & gate, w_new, kp_w)
     R_new, t_new, inl, _ = optimize_pose(
         project_fn, project_jac_fn, R, t, X, f_uv, f_level,
-        bound.to(torch.float32), ur_obs=ur, bf=bf, wide_fov=wide_fov)
+        bound.to(torch.float32) * kp_w, ur_obs=ur, bf=bf, wide_fov=wide_fov)
     R = torch.where(gate, R_new, R)
     t = torch.where(gate, t_new, t)
     inl = inl & bound
@@ -117,12 +143,12 @@ def _round(project_fn, project_jac_fn, undistort_fn, R, t,
     lm_mask = lm_mask * (1.0 - taken)
 
     moved = torch.zeros_like(good)
-    if move_obs:
+    if use_klt and move_obs:
         moved = good & inl & (distinct >= klt_distinct_min)
         f_uv, f_uv_raw, ur = _apply_moves(moved, uv_ref, f_uv, f_uv_raw, ur,
                                           undistort_fn)
     return (R, t, kp_lm, kp_lm_pos, inl, lm_mask, visible,
-            f_uv, f_uv_raw, ur, moved, taken)
+            f_uv, f_uv_raw, ur, moved, taken, kp_w)
 
 
 def _apply_moves(move, uv_ref, f_uv, f_uv_raw, ur, undistort_fn):
@@ -151,10 +177,11 @@ def fused_track_frame(
     nn_ratio=0.8, scale_factor=1.2, n_levels=8,
     wide_slack=7, local_slack=1, max_theta_deg=None,
     klt_zncc_min=0.5, klt_max_shift=3.0, klt_distinct_min=0.15,
-    wide_fov=False, n_local_rounds=2, move_obs=True,
+    wide_fov=False, use_klt=True, n_local_rounds=2, move_obs=True,
     ur_obs=None, bf=None,
     flow=None, flow_radius=40.0,
     R_last=None, t_last=None,
+    ambig_w=None,
 ):
     """The whole per-frame tracking slice (see the module docstring).
     lm_desc is (L, 256) uint8 bits or (L, 8) int32 words; f_desc is the
@@ -185,10 +212,10 @@ def fused_track_frame(
         kp_lm, kp_lm_pos, mask_l, (fl_uv_ref, fl_distinct, fl_good), took = \
             _flow_prologue(flow, lm_pos, lm_patch, kp_lm, kp_lm_pos, mask_l,
                            f_uv, f_level, f_desc, f_valid, f_uv_raw, f_angle,
-                           pyr, level_wh, klt_zncc_min, klt_max_shift,
-                           flow_radius)
+                           pyr, level_wh, use_klt, klt_zncc_min,
+                           klt_max_shift, flow_radius)
         n_flow = took.sum()
-        if move_obs:
+        if use_klt and move_obs:
             move = fl_good & (fl_distinct >= klt_distinct_min)
             f_uv, f_uv_raw, ur = _apply_moves(move, fl_uv_ref, f_uv, f_uv_raw,
                                               ur, undistort_fn)
@@ -209,12 +236,17 @@ def fused_track_frame(
                   n_levels=n_levels, klt_zncc_min=klt_zncc_min,
                   klt_max_shift=klt_max_shift,
                   klt_distinct_min=klt_distinct_min, move_obs=move_obs,
-                  max_theta_deg=max_theta_deg, wide_fov=wide_fov)
+                  max_theta_deg=max_theta_deg, wide_fov=wide_fov,
+                  use_klt=use_klt, ambig_w=ambig_w)
     f_words = as_words(f_desc)
     lm_words = as_words(lm_desc)
+    kp_w = torch.ones(f_uv.shape[0], dtype=torch.float32, device=dev)
+    if flow is not None and use_klt and ambig_w is not None:
+        kp_w = torch.where((kp_lm != NO_LM) & (fl_distinct < klt_distinct_min),
+                           torch.full_like(kp_w, ambig_w), kp_w)
 
     def run(Rc, tc, kp_lm, kp_lm_pos, mask, wide, th, slack, f_uv, f_uv_raw,
-            ur, gate=None):
+            ur, kp_w, gate=None):
         gates = ((lm_normal_w, lm_min_w, lm_max_w) if wide
                  else (lm_normal, lm_min_dist, lm_max_dist))
         return _round(project_fn, project_jac_fn, undistort_fn, Rc, tc,
@@ -222,24 +254,24 @@ def fused_track_frame(
                       kp_lm, kp_lm_pos,
                       f_uv, f_level, f_words, f_valid, f_uv_raw, f_angle,
                       pyr, level_wh, width, height, th, level_slack=slack,
-                      ur=ur, bf=bf, apply_gate=gate, **common)
+                      ur=ur, bf=bf, apply_gate=gate, kp_w=kp_w, **common)
 
     # Motion-model round (wide gates over the wide-eligible rows), then the
     # in-program widened retry, which restarts from the base pose and takes
     # effect only when the first pass bound too few.
     R_base, t_base = R, t
     (R, t, kp_lm, kp_lm_pos, inl, _mw, _vis, f_uv, f_uv_raw, ur, mv,
-     taken) = run(R, t, kp_lm, kp_lm_pos, mask_l * mask_wide, True, th_wide,
-                  wide_slack, f_uv, f_uv_raw, ur)
+     taken, kp_w) = run(R, t, kp_lm, kp_lm_pos, mask_l * mask_wide, True,
+                        th_wide, wide_slack, f_uv, f_uv_raw, ur, kp_w)
     mask_l = mask_l * (1.0 - taken)
     moved_any = moved_any | mv
     need_retry = (kp_lm != NO_LM).sum() < min_track_matches
     R_r = torch.where(need_retry, R_base, R)
     t_r = torch.where(need_retry, t_base, t)
     (R, t, kp_lm, kp_lm_pos, inl, _mw, _vis, f_uv, f_uv_raw, ur, mv,
-     taken) = run(R_r, t_r, kp_lm, kp_lm_pos, mask_l * mask_wide, True,
-                  th_wide_retry, wide_slack, f_uv, f_uv_raw, ur,
-                  gate=need_retry)
+     taken, kp_w) = run(R_r, t_r, kp_lm, kp_lm_pos, mask_l * mask_wide, True,
+                        th_wide_retry, wide_slack, f_uv, f_uv_raw, ur, kp_w,
+                        gate=need_retry)
     mask_l = mask_l * (1.0 - taken)
     moved_any = moved_any | mv
     n_mm = (kp_lm != NO_LM).sum()
@@ -247,8 +279,8 @@ def fused_track_frame(
     visible_r1 = None
     for _ in range(n_local_rounds):
         (R, t, kp_lm, kp_lm_pos, inl, mask_l, vis, f_uv, f_uv_raw, ur, mv,
-         _tk) = run(R, t, kp_lm, kp_lm_pos, mask_l, False, th_local,
-                    local_slack, f_uv, f_uv_raw, ur)
+         _tk, kp_w) = run(R, t, kp_lm, kp_lm_pos, mask_l, False, th_local,
+                          local_slack, f_uv, f_uv_raw, ur, kp_w)
         moved_any = moved_any | mv
         if visible_r1 is None:
             visible_r1 = vis
@@ -269,7 +301,7 @@ def fused_track_rounds(
     th=1.0, nn_ratio=0.8, scale_factor=1.2, n_levels=8, level_slack=1,
     max_theta_deg=None,
     klt_zncc_min=0.5, klt_max_shift=3.0, klt_distinct_min=0.15,
-    wide_fov=False, n_rounds=1, move_obs=True,
+    wide_fov=False, use_klt=True, n_rounds=1, move_obs=True,
     ur_obs=None, bf=None,
     flow=None, flow_radius=40.0,
 ):
@@ -290,10 +322,10 @@ def fused_track_rounds(
         kp_lm, kp_lm_pos, lm_mask, (fl_uv_ref, fl_distinct, fl_good), took = \
             _flow_prologue(flow, lm_pos, lm_patch, kp_lm, kp_lm_pos, lm_mask,
                            f_uv, f_level, f_desc, f_valid, f_uv_raw, f_angle,
-                           pyr, level_wh, klt_zncc_min, klt_max_shift,
-                           flow_radius)
+                           pyr, level_wh, use_klt, klt_zncc_min,
+                           klt_max_shift, flow_radius)
         n_flow = took.sum()
-        if move_obs:
+        if use_klt and move_obs:
             move = fl_good & (fl_distinct >= klt_distinct_min)
             f_uv, f_uv_raw, ur = _apply_moves(move, fl_uv_ref, f_uv, f_uv_raw,
                                               ur, undistort_fn)
@@ -303,7 +335,7 @@ def fused_track_rounds(
     lm_words = as_words(lm_desc)
     for _ in range(n_rounds):
         (R, t, kp_lm, kp_lm_pos, inl, lm_mask, visible, f_uv, f_uv_raw, ur,
-         mv, _tk) = _round(project_fn, project_jac_fn, undistort_fn, R, t,
+         mv, _tk, _w) = _round(project_fn, project_jac_fn, undistort_fn, R, t,
                            lm_pos, lm_normal, lm_min_dist, lm_max_dist,
                            lm_words, lm_mask, lm_gid, lm_patch, kp_lm,
                            kp_lm_pos, f_uv, f_level, f_words, f_valid,
@@ -311,7 +343,8 @@ def fused_track_rounds(
                            th, nn_ratio, scale_factor, n_levels, level_slack,
                            klt_zncc_min, klt_max_shift, klt_distinct_min,
                            move_obs, ur=ur, bf=bf,
-                           max_theta_deg=max_theta_deg, wide_fov=wide_fov)
+                           max_theta_deg=max_theta_deg, wide_fov=wide_fov,
+                           use_klt=use_klt)
         moved_any = moved_any | mv
         if visible_r1 is None:
             visible_r1 = visible

@@ -1,12 +1,13 @@
-"""Global bundle adjustment over a whole map, on one device.
+"""Global bundle adjustment over a whole map.
 
 Counterpart of ``orb_slam3_study_kr_tpu/pipeline/global_ba.py``
 (Optimizer::GlobalBundleAdjustemnt + LoopClosing::RunGlobalBundleAdjustment):
 after a loop correction every keyframe and landmark is refined with a
 bounded-iteration LM solve.  Large maps switch from the dense-Schur
 assembly to the matrix-free PCG reduced-camera solve, so GBA is never
-skipped for memory.  The landmark-sharded multi-device solve is not ported
-(ROADMAP item 19; ``SystemConfig(ba_devices > 1)`` raises).
+skipped for memory.  With a mesh of more than one shard
+(``parallel/dist_ba.py``, ``SystemConfig.ba_devices``) the solve is
+sharded by landmark and the shards' reduced camera systems are summed.
 
 The map is snapshotted (``_assemble_gba``), solved (``_solve_gba``) and
 written back (``_apply_gba``); rows created between snapshot and write-back
@@ -42,17 +43,22 @@ def _padr(a, n, fill=0):
 
 
 def global_bundle_adjustment(cfg, m: MapState, n_iters: int = 10,
-                             cull_outliers: bool = True,
+                             cull_outliers: bool = True, mesh=None,
                              use_lock: bool = False) -> bool:
-    """Full-map BA on ``cfg.device``.  Returns False only for degenerate
-    maps.  Gauge: the two oldest keyframes are frozen."""
+    """Full-map BA on ``cfg.device``, or over ``mesh`` (a
+    ``parallel.dist_ba.BaMesh``) when it has more than one shard.  Returns
+    False only for degenerate maps.  Gauge: the two oldest keyframes are
+    frozen."""
     dev = resolve_device(cfg.device, "TrackerConfig.device")
     lock = m.lock if use_lock else contextlib.nullcontext()
     with lock:
         snap = _assemble_gba(cfg, m)
     if snap is None:
         return False
-    out = _solve_gba(cfg, snap, n_iters, dev)
+    if mesh is not None and mesh.size > 1:
+        out = _distributed_gba(cfg, mesh, snap, n_iters)
+    else:
+        out = _solve_gba(cfg, snap, n_iters, dev)
     with lock:
         _apply_gba(cfg, m, snap, out, cull_outliers)
     return True
@@ -167,3 +173,33 @@ def _apply_gba(cfg, m, s, out, cull_outliers):
         if orphan.size:
             m.remove_landmarks(orphan)
     m.change_idx += 1
+
+
+def _distributed_gba(cfg, mesh, s, n_iters):
+    """Landmark-sharded GBA over the mesh: the dense-chunked assembly while
+    the keyframes number 512 or fewer (its replicated (6K, 6K) solve stays
+    cheap), PCG beyond.  Returns the solve in the snapshot's order: X in
+    the snapshot's landmark order, chi2 in its observation order."""
+    from orb_slam3_study_kr_tpu_torch.parallel.dist_ba import (
+        distributed_bundle_adjust, shard_ba_problem)
+    parts = shard_ba_problem(mesh.size, s["X"], s["lm_mask"], s["op"], s["ol"],
+                             s["ouv"], s["olev"], s["omask"], obs_ur=s["our"])
+    dev_of_lm, local_of_lm, Mb, obs_slot = parts[-4:]
+    sharded = [torch.as_tensor(mesh.local_rows(a)) for a in parts[:-4]]
+    stereo_kw = {}
+    if s["our"] is not None:
+        stereo_kw = dict(obs_ur=sharded.pop(), bf=cfg.bf)
+    R, t, X_sh, chi2_sh = distributed_bundle_adjust(
+        mesh, cfg.project_fn, cfg.project_jac_fn,
+        torch.as_tensor(s["R_all"]), torch.as_tensor(s["t_all"]),
+        torch.as_tensor(s["fixed_p"]), *sharded, n_iters=n_iters,
+        assembly="dense_chunked" if s["kfs"].size <= 512 else "pcg",
+        wide_fov=cfg.is_kb8, **stereo_kw)
+    n_lms = s["lms"].size
+    X = mesh.gather(X_sh)
+    chi2 = np.zeros(s["op"].shape[0], np.float32)
+    live = obs_slot >= 0
+    chi2[obs_slot[live]] = mesh.gather(chi2_sh)[live]
+    return dict(R=R.cpu().numpy(), t=t.cpu().numpy(),
+                X_new=X[dev_of_lm[:n_lms] * Mb + local_of_lm[:n_lms]],
+                chi2=chi2)

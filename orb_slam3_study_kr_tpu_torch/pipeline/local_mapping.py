@@ -33,6 +33,10 @@ from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 CULL_FOUND_RATIO = 0.25
 
 
+# The reference's shape buckets stay: padded to them, the local BA and the
+# searches see a few distinct shapes, which bounds what a CUDA-graph capture
+# of these stages must record, and they keep the padded solves equal to the
+# reference's.
 def _bucket(n, step):
     return max(step, -(-n // step) * step)
 

@@ -66,6 +66,7 @@ class LoopCloser:
     db: KeyframeDatabase
     inertial: bool = False
     run_gba: bool = True    # full-map BA after the pose-graph correction
+    ba_mesh: object = None  # parallel.dist_ba.BaMesh -> landmark-sharded GBA
     gba_iters: int = 10     # LoopClosing.cc:2289 nIterations=10
     # Cascade gates (reference values, LoopClosing.cc:583-587).
     min_bow_matches: int = 20       # nBoWMatches
@@ -494,5 +495,6 @@ class LoopCloser:
             from orb_slam3_study_kr_tpu_torch.pipeline.global_ba import (
                 global_bundle_adjustment)
             if global_bundle_adjustment(self.cfg, self.map,
-                                        n_iters=self.gba_iters, use_lock=True):
+                                        n_iters=self.gba_iters,
+                                        mesh=self.ba_mesh, use_lock=True):
                 self.stats["n_gba"] += 1

@@ -105,7 +105,11 @@ class SystemConfig:
     # cached .npz from bow.vocabulary.save_vocabulary.  None = train on this
     # session's descriptors once vocab_min_kfs keyframes exist.
     vocabulary_path: str = None
-    ba_devices: int = 0      # > 1: landmark-sharded global BA (not ported)
+    # > 1: landmark-sharded global BA over the first ba_devices devices
+    # (0/1 = single device; no mesh where fewer exist).  On "cuda" these
+    # are the visible cards; on "cpu", ba_devices CPU shards (the
+    # counterpart of the reference's virtual host devices).
+    ba_devices: int = 0
     # Background mapping/loop worker (the reference's LocalMapping and
     # LoopClosing threads); off = synchronous, deterministic orchestration.
     async_mapping: bool = False
@@ -113,11 +117,7 @@ class SystemConfig:
     device: str = "cuda"
 
     def check_supported(self):
-        """Raise NotImplementedError for reference routes not ported yet."""
-        if self.ba_devices > 1:
-            raise NotImplementedError(
-                "SystemConfig.ba_devices > 1: the multi-device global BA is "
-                "not ported yet (ROADMAP item 19)")
+        """Raise ValueError for a sensor the session does not know."""
         if self.sensor not in SENSORS:
             raise ValueError(f"SystemConfig.sensor={self.sensor!r}: expected "
                              f"one of {SENSORS}")
@@ -148,6 +148,7 @@ class SlamSystem:
         if self.cfg.tracker_right is not None:
             self.cfg.tracker_right = dataclasses.replace(
                 self.cfg.tracker_right, device=str(self.device))
+        self.ba_mesh = self._ba_mesh()
         self.ransac_sets_fn = ransac_sets_fn
         self.uniforms_fn = uniforms_fn
         self.loop_uniforms_fn = loop_uniforms_fn
@@ -169,6 +170,18 @@ class SlamSystem:
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _ba_mesh(self):
+        """The reference's rule: a mesh over the first ba_devices devices,
+        none where fewer exist.  On the CPU the devices are CPU shards."""
+        n = self.cfg.ba_devices
+        if n <= 1:
+            return None
+        from orb_slam3_study_kr_tpu_torch.parallel import make_ba_mesh
+        if self.device.type == "cpu":
+            return make_ba_mesh([self.device] * n)
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return make_ba_mesh(devs[:n]) if len(devs) >= n else None
 
     # ------------------------------------------------------------------
     def _new_active_map(self):
@@ -209,7 +222,7 @@ class SlamSystem:
 
     def _loop_closer(self, m, db):
         return LoopCloser(cfg=self.cfg.tracker, map=m, db=db,
-                          inertial=self.inertial,
+                          ba_mesh=self.ba_mesh, inertial=self.inertial,
                           uniforms_fn=self.loop_uniforms_fn)
 
     def _build_tracker(self, m):

@@ -46,15 +46,6 @@ class TrackState(enum.Enum):
     LOST = 3
 
 
-# Options of the reference tracker this port does not carry yet, with the
-# value that keeps them off (ROADMAP.md names the item that ports each).
-_NOT_PORTED = {
-    "klt_refine": (True, "the KLT-off tracker variant (ROADMAP item 12 knobs)"),
-    "refkf_anchor": (False, "refkf_anchor (ROADMAP item 12 knobs)"),
-    "patch_zncc_min": (-1.0, "patch_zncc_min > -1 (ROADMAP item 12 knobs)"),
-}
-
-
 @dataclass
 class TrackerConfig:
     width: int = 752
@@ -88,7 +79,7 @@ class TrackerConfig:
     init_min_parallax: float = 1.5
     local_map_size: int = 4096
     bf: float = 0.0              # fx * stereo baseline; 0 = mono sensor
-    patch_zncc_min: float = -1.0
+    patch_zncc_min: float = -1.0  # raw-patch ZNCC gate on matches; <= -1 off
     # KLT match verification/refinement (ops/klt.py) with the
     # distinctiveness-gated observation write-back.
     klt_refine: bool = True
@@ -114,19 +105,10 @@ class TrackerConfig:
     device: str = "cuda"
 
     def check_supported(self):
-        """Raise NotImplementedError for reference options not ported yet."""
+        """Raise ValueError for a lens model the port does not know."""
         if self.camera_model not in ("pinhole", "kb8"):
             raise ValueError(f"TrackerConfig.camera_model={self.camera_model!r}:"
                              " expected 'pinhole' or 'kb8'")
-        for name, (off, what) in _NOT_PORTED.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"TrackerConfig.{name}={getattr(self, name)!r}: {what} is "
-                    "not ported to the torch package yet")
-        if self.ambig_obs_weight < 1.0:
-            raise NotImplementedError(
-                "TrackerConfig.ambig_obs_weight < 1 is not ported to the torch "
-                "package yet (ROADMAP item 12 knobs)")
 
     def _tensor(self, values):
         return torch.tensor(values, dtype=torch.float32, device=resolve_device(
@@ -317,14 +299,19 @@ class MonoTracker:
     # ------------------------------------------------------------------
     def _extract_frame(self, img, timestamp) -> Frame:
         """ORB extraction + undistortion into a Frame (keeps the blurred
-        pyramid on the device for KLT)."""
+        pyramid on the device when KLT refinement is on)."""
         cfg = self.cfg
         if isinstance(img, torch.Tensor):
             img_dev = img.to(self.device)
         else:
             a = np.asarray(img)
             img_dev = self._t(a if a.dtype == np.uint8 else a.astype(np.float32))
-        feats, pyr = orb.extract_orb(img_dev, cfg.orb_config, with_pyramid=True)
+        pyr = None
+        if cfg.klt_refine:
+            feats, pyr = orb.extract_orb(img_dev, cfg.orb_config,
+                                         with_pyramid=True)
+        else:
+            feats = orb.extract_orb(img_dev, cfg.orb_config)
         uv_dev = cfg.undistort_px_fn(feats.uv)
         valid_dev = feats.valid
         if cfg.is_kb8:
@@ -668,6 +655,22 @@ class MonoTracker:
         lm_slot, ok, visible = _np(lm_slot), _np(ok), _np(visible)
         matched_lm = np.where(ok, lm_ids[np.clip(lm_slot, 0, lm_ids.size - 1)],
                               NO_LM).astype(np.int32)
+        # Appearance gate: the match's oriented raw patch must correlate
+        # with the landmark's reference patch.
+        if cfg.patch_zncc_min > -1 and frame.patch is not None:
+            sel = np.nonzero(matched_lm != NO_LM)[0]
+            if sel.size:
+                p1 = frame.patch[sel].astype(np.float32).reshape(sel.size, -1)
+                p2 = m.lm_patch[matched_lm[sel]].astype(np.float32).reshape(
+                    sel.size, -1)
+
+                def _norm(p):
+                    p = p - p.mean(1, keepdims=True)
+                    return p / np.maximum(
+                        np.linalg.norm(p, axis=1, keepdims=True), 1e-6)
+
+                z = (_norm(p1) * _norm(p2)).sum(1)
+                matched_lm[sel[z < cfg.patch_zncc_min]] = NO_LM
         matched_lm = self._klt_refine_matches(frame, matched_lm)
         return matched_lm, visible, lm_ids
 
@@ -675,7 +678,7 @@ class MonoTracker:
         """Photometric verification + sub-pixel refinement of descriptor
         matches against the landmarks' canonical patches."""
         cfg, m = self.cfg, self.map
-        if frame.pyr is None:     # a frame built without its pyramid
+        if not cfg.klt_refine or frame.pyr is None:
             return matched_lm
         mask = (matched_lm != NO_LM) & (frame.kp_lm == NO_LM)
         if not mask.any():
@@ -916,7 +919,10 @@ class MonoTracker:
         return False
 
     def _use_fused_rounds(self) -> bool:
-        return self.cfg.fused_rounds and not self._custom_pose_opt_active()
+        """The fused rounds cover the split rounds' semantics except the
+        raw-patch ZNCC gate: with that gate on, the split rounds run."""
+        return (self.cfg.fused_rounds and self.cfg.patch_zncc_min <= -1
+                and not self._custom_pose_opt_active())
 
     def _build_lm_block(self, cand, L, wide_gates=False, R_pred=None,
                         t_pred=None):
@@ -1021,6 +1027,7 @@ class MonoTracker:
         lf = self.last_frame
         if R_pred is None:
             R_pred, t_pred = self._predict_pose()
+        use_klt = cfg.klt_refine and frame.pyr is not None
         L = cfg.local_map_size
         with m.lock:
             kp, lms = lf.bound_obs()
@@ -1099,13 +1106,15 @@ class MonoTracker:
                 klt_zncc_min=cfg.klt_zncc_min,
                 klt_max_shift=cfg.klt_max_shift,
                 klt_distinct_min=cfg.klt_distinct_min,
-                wide_fov=cfg.is_kb8,
+                wide_fov=cfg.is_kb8, use_klt=use_klt,
                 move_obs=cfg.klt_move_obs,
                 flow=flow, flow_radius=cfg.flow_anchor_radius,
                 R_last=(self._t(lf.R_cw, torch.float32)
                         if flow is not None else None),
                 t_last=(self._t(lf.t_cw, torch.float32)
                         if flow is not None else None),
+                ambig_w=(cfg.ambig_obs_weight
+                         if use_klt and cfg.ambig_obs_weight < 1.0 else None),
                 **self._stereo_kw(frame))
         (R, t, kp_lm, inl, visible, n_mm, moves, n_flow) = out
         if int(n_mm) < cfg.min_track_matches:
@@ -1145,6 +1154,7 @@ class MonoTracker:
         prologue) and apply pose/bindings/KLT moves on the host.  Returns
         (n_inliers, visible_round1)."""
         cfg, m = self.cfg, self.map
+        use_klt = cfg.klt_refine and frame.pyr is not None
         with m.lock:
             stale = (frame.kp_lm != NO_LM) & ~m.lm_valid[
                 np.clip(frame.kp_lm, 0, m.max_lm - 1)]
@@ -1165,7 +1175,7 @@ class MonoTracker:
                 klt_zncc_min=cfg.klt_zncc_min,
                 klt_max_shift=cfg.klt_max_shift,
                 klt_distinct_min=cfg.klt_distinct_min, wide_fov=cfg.is_kb8,
-                n_rounds=n_rounds, move_obs=cfg.klt_move_obs,
+                use_klt=use_klt, n_rounds=n_rounds, move_obs=cfg.klt_move_obs,
                 flow=flow, flow_radius=cfg.flow_anchor_radius,
                 **self._stereo_kw(frame))
         (R, t, kp_lm, inl, visible, moves, n_flow) = out
@@ -1210,8 +1220,23 @@ class MonoTracker:
                     row_of[cand] = np.arange(cand.size, dtype=np.int32)
                     gid = np.where(bound, lf.kp_lm, NO_LM).astype(np.int32)
                     cl = np.clip(gid, 0, m.max_lm - 1)
-                    flow = (lf.dev("uv"), lf.dev("desc"), lf.dev("angle"),
-                            self._t(bound), self._t(gid), self._t(row_of[cl]))
+                    src = [lf.dev("uv"), lf.dev("desc"), lf.dev("angle"),
+                           self._t(bound), self._t(gid), self._t(row_of[cl])]
+                    if cfg.refkf_anchor and self.ref_kf >= 0:
+                        # The reference keyframe's bound observations join
+                        # the pose-free source set, after the last frame's
+                        # rows: first wins keeps image continuity primary.
+                        rk = self.ref_kf
+                        kb = m.kf_kp_valid[rk] & (m.kf_kp_lm[rk] != NO_LM)
+                        kgid = np.where(kb, m.kf_kp_lm[rk],
+                                        NO_LM).astype(np.int32)
+                        kb &= m.lm_valid[np.clip(kgid, 0, m.max_lm - 1)]
+                        kcl = np.clip(kgid, 0, m.max_lm - 1)
+                        extra = (m.kf_kp_uv[rk], m.kf_desc[rk],
+                                 m.kf_kp_angle[rk], kb, kgid, row_of[kcl])
+                        src = [torch.cat([a, self._t(b).to(a.dtype)])
+                               for a, b in zip(src, extra)]
+                    flow = tuple(src)
         n, _ = self._exec_fused_rounds(frame, block, blk_mask, R_pred, t_pred,
                                        th=th, level_slack=7, flow=flow)
         return n

@@ -35,32 +35,58 @@ def _seg_sum(n, idx, vals):
                        device=vals.device).index_add_(0, idx, vals)
 
 
-def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg):
+def _only(parts):
+    return parts[0]
+
+
+def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
+               psum_fn=None):
     """Matrix-free solve of the reduced camera system S dp = rhs.
 
     S v = Hpp_d v - W Hll_inv W^T v is two segment-sum sweeps over the
     observations (W is never formed); the block-Jacobi preconditioner uses
     the exact diagonal blocks of S (a pose/landmark pair has at most one
-    observation, so the correction is one segment-sum of Y E^T)."""
+    observation, so the correction is one segment-sum of Y E^T).
+
+    With ``psum_fn`` (the landmark-sharded solve of parallel/dist_ba.py)
+    Hll_inv, bl, E, obs_pose and obs_lm are sequences with one entry per
+    local shard, and ``psum_fn(partials)`` returns the global sum of the
+    shards' pose-space partials on Hpp_d's device.  The setup's two
+    pose-space segment sums and each matvec's u2 sweep are reduced; the
+    landmark-space sweep stays on its shard, which holds each of its
+    landmarks' every observation.  The pose-space CG itself runs once,
+    on the reduced values."""
     K = Hpp_d.shape[0]
-    M = Hll_inv.shape[0]
     dt = Hpp_d.dtype
+    if psum_fn is None:
+        shards = [(Hll_inv, bl, E, obs_pose, obs_lm)]
+        psum_fn = _only
+    else:
+        shards = list(zip(Hll_inv, bl, E, obs_pose, obs_lm))
     freeK = (1.0 - fixed)[:, None]
-    Y = torch.einsum("nab,nbc->nac", E, Hll_inv[obs_lm])        # (O, 6, 3)
-    rhs = -(bp - _seg_sum(K, obs_pose, torch.einsum("nab,nb->na", Y,
-                                                    bl[obs_lm])))
+    Ys = [torch.einsum("nab,nbc->nac", Es, Hi[ol])        # (O, 6, 3)
+          for Hi, _, Es, _, ol in shards]
+    rhs = -(bp - psum_fn([_seg_sum(K, op, torch.einsum("nab,nb->na", Y,
+                                                       bls[ol]))
+                          for Y, (_, bls, _, op, ol) in zip(Ys, shards)]))
     rhs = rhs * freeK
-    Dk = Hpp_d - _seg_sum(K, obs_pose, torch.einsum("nab,ncb->nac", Y, E))
+    Dk = Hpp_d - psum_fn([_seg_sum(K, op, torch.einsum("nab,ncb->nac", Y, Es))
+                          for Y, (_, _, Es, op, _) in zip(Ys, shards)])
     eye6 = torch.eye(6, dtype=dt, device=Hpp_d.device)
     Dk = Dk * freeK[..., None] + eye6[None] * fixed[:, None, None]
     Minv = torch.linalg.inv(Dk)
 
+    def u2_part(v, Hi, Es, op, ol):
+        v = v.to(Es.device)
+        tv = _seg_sum(Hi.shape[0], ol, torch.einsum("nab,na->nb", Es, v[op]))
+        z = torch.einsum("mab,mb->ma", Hi, tv)
+        return _seg_sum(K, op, torch.einsum("nab,nb->na", Es, z[ol]))
+
     def matvec(v):
         v = v * freeK
         u = torch.einsum("kab,kb->ka", Hpp_d, v)
-        tv = _seg_sum(M, obs_lm, torch.einsum("nab,na->nb", E, v[obs_pose]))
-        z = torch.einsum("mab,mb->ma", Hll_inv, tv)
-        u2 = _seg_sum(K, obs_pose, torch.einsum("nab,nb->na", E, z[obs_lm]))
+        u2 = psum_fn([u2_part(v, Hi, Es, op, ol)
+                      for Hi, _, Es, op, ol in shards])
         return (u - u2) * freeK
 
     x = torch.zeros((K, 6), dtype=dt, device=Hpp_d.device)

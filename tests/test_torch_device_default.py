@@ -33,6 +33,7 @@ from orb_slam3_study_kr_tpu_torch.slam_map.map_state import MapState
 from orb_slam3_study_kr_tpu_torch.examples import run_euroc, run_kitti
 from orb_slam3_study_kr_tpu_torch.io import png
 from orb_slam3_study_kr_tpu_torch.io.datasets import load_kitti
+from orb_slam3_study_kr_tpu_torch.parallel import make_ba_mesh, multihost_worker
 from test_torch_fisheye_cuda import KB8, kb8_kw
 
 torch.set_num_threads(2)
@@ -125,7 +126,24 @@ def _kitti_driver(device, tmp_path):
         settings=None, sensor="mono", device=device))
 
 
+def _mesh(device):
+    """make_ba_mesh() takes every visible card; on the CPU, CPU shards."""
+    mesh = make_ba_mesh() if device == "cuda" else make_ba_mesh([device] * 2)
+    return torch.zeros(1, device=mesh.devices[0])
+
+
+def _worker_device(device):
+    """The multi-process worker's device: its --device default, or cpu."""
+    argv = ["0", "1", "0"] + ([] if device == "cuda" else ["--device", device])
+    args = multihost_worker.parse_args(argv)
+    return torch.zeros(1, device=multihost_worker.rank_device(args.device, 0))
+
+
 BUILDS = {
+    "make_ba_mesh": lambda cfg, tmp: _mesh(cfg.device),
+    "multihost_worker": lambda cfg, tmp: _worker_device(cfg.device),
+    "SlamSystem(ba_devices=2)": lambda cfg, tmp: _session(cfg.device,
+                                                         ba_devices=2),
     "run_euroc.build_system": lambda cfg, tmp: _euroc_driver(cfg.device, tmp),
     "run_euroc.build_system(stereo-inertial)": lambda cfg, tmp: _euroc_driver(
         cfg.device, tmp, "stereo-inertial"),

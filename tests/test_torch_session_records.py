@@ -17,6 +17,13 @@
   stage and the frame it was reached at, the init scale, metric ATE and
   the split frames.  The reference has no such test; this record holds
   phase 18's walls against it.
+- The first 12 frames of the loop-off session of ``test_mono_slam_smoke``
+  (seed 1, 18-frame path) with each of ``chip_smoke.py`` phase 21's
+  tracker knobs (``klt_refine=False``;
+  ``refkf_anchor=True`` with ``ambig_obs_weight=0.5``;
+  ``patch_zncc_min=0.3``) through both packages, the port with its own
+  seeded RANSAC draws as on the card: final state, scaled ATE, keyframes,
+  fused and split frames.  Phase 21 holds the card to the reference's.
 
 Each test prints one ``RECORD`` JSON line with what it measured.  Run with
 ``JAX_PLATFORMS=cpu python -m pytest -q -s -m slow
@@ -248,3 +255,45 @@ def test_fisheye_stereo_inertial_record():
         assert r["nm"] > 35 and r["ate_metric"] < 0.25
         assert r["split_frames"] >= 1
     assert abs(p["imu_init_scale"] / j["imu_init_scale"] - 1) < 0.02
+
+
+# chip_smoke.py phase 21's sessions: the tracker knobs of ROADMAP item 12a.
+KNOB_SESSIONS = {"klt_off": dict(klt_refine=False),
+                 "anchor_ambig": dict(refkf_anchor=True, ambig_obs_weight=0.5),
+                 "patch_zncc": dict(patch_zncc_min=0.3)}
+
+
+def _knob_run(package, kw, n=12):
+    rng = np.random.default_rng(1)
+    world = synthetic.make_textured_world(rng, depth=6.0)
+    R, t = synthetic.lateral_trajectory(18, x_span=0.5, z_span=0.0, y_amp=0.0)
+    R, t = R[:n], t[:n]
+    if package == "jax":
+        slam = JSlamSystem(JSystemConfig(tracker=JTrackerConfig(fps=10, **kw),
+                                         enable_loop_closing=False))
+    else:
+        slam = SlamSystem(SystemConfig(tracker=TrackerConfig(fps=10, **kw),
+                                       enable_loop_closing=False, device="cpu"))
+    for i in range(n):
+        slam.track_monocular(synthetic.render_textured(world, R[i], t[i],
+                                                       rng=rng), i * 0.1)
+    rows = slam.trajectory()
+    rmse, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4], np.arange(n) * 0.1,
+                           _centers(R, t), True)
+    st = slam.tracker.stats
+    return dict(state=slam.state.name, ate=float(rmse), nm=int(nm),
+                n_kf=int(slam.stats()["n_kf"]),
+                fused=int(st.get("fused_frames", 0)),
+                split=int(st.get("split_frames", 0)))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", list(KNOB_SESSIONS))
+def test_tracker_knob_session_record(name):
+    """Both packages' loop-off session (12 frames) with one of phase 21's
+    knobs: each ends in a tracked state with a finite scaled ATE."""
+    kw = KNOB_SESSIONS[name]
+    rec = {p: _knob_run(p, kw) for p in ("jax", "port")}
+    print("RECORD", json.dumps(dict(session=name, **rec)))
+    for r in rec.values():
+        assert r["state"] in ("OK", "RECENTLY_LOST") and np.isfinite(r["ate"])
