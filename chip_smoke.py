@@ -98,11 +98,29 @@ the int8 tensor-core rate of 1979 T/s).
      klt_refine=False, with refkf_anchor=True and ambig_obs_weight=0.5,
      and with patch_zncc_min=0.3 (split frames), each held to the
      reference's CPU run of the same frames (final state, scaled ATE
-     under 1.6x its).
+     under 1.6x its);
+ 22. the routes no earlier phase drives:
+     a. phase 9 on an inertial map (LoopCloser(inertial=True)): a drift at
+        scale 1, the fixed-scale Sim3, the 4-DoF essential graph, the GBA;
+        corrected once where the reference corrects on the CPU, at scale
+        exactly 1 (tests/test_torch_loop_closing.py);
+     b. phase 9 on a stereo map (every observation with its virtual right
+        coordinate, TrackerConfig.bf = fx x 0.11): a Sim3, the GBA with the
+        stereo row;
+     c. an asynchronous mono-inertial session: 16 frames of the seed-11
+        path with SystemConfig(async_mapping=True), the IMU init and the
+        local inertial BA on the worker (tests/test_torch_async_inertial.py's
+        walls);
+     d. phase 13's scenario with the worker on, in a session of its own
+        (the default path's 40 frames, the noise, the replay): the merge
+        comes as the worker's "merge" event and is applied on the
+        tracker's thread.
 Phase 8 also relocalizes a view of frame 20 with 96 % of its descriptors
 randomized: it fails the first pass's 50-inlier acceptance, so the
 widening re-search runs (one K2 launch per pass).
-Phases 6-19, 20a and 21 are the main paths: each resets the kernels' launch
+Phase 7 also counts the synchronizing calls of its last (warm, fused) frame
+under torch.cuda.set_sync_debug_mode("warn"), by call site.
+Phases 6-19, 20a, 21 and 22 are the main paths: each resets the kernels' launch
 counters just before it and reads them just after; the kernels line sums
 them (20b and 20c run the BA alone, which launches no kernel of K1-K3).
 Their frames are rendered by worker processes, one per path, while the
@@ -507,13 +525,19 @@ N_BLACK, N_REPLAY = 14, 26      # the Atlas phase's noise and replay frames
 RELOC_KEEP = 0.04               # descriptors kept in the re-search view
 SCENARIOS = ("loop_off", "default", "atlas", "stereo", "rgbd", "async",
              "mono_inertial", "rgbd_inertial", "fisheye_mono",
-             "fisheye_stereo", "fisheye_inertial", "driver_si", "driver_mono")
+             "fisheye_stereo", "fisheye_inertial", "driver_si", "driver_mono",
+             "async_inertial")
 # test_mono_inertial_pipeline (seed 11, 60 frames) and
 # test_rgbd_inertial_pipeline (seed 13, 50 frames): one excited trajectory
 # with its 200 Hz IMU stream, the init schedule (2.5, 4.0, 5.0) s; phase
 # 19a's rectified stereo-inertial rig flies the seed-13 path.
 INERTIAL = {"mono_inertial": (11, 60), "rgbd_inertial": (13, 50),
-            "fisheye_inertial": (13, 40), "driver_si": (13, 40)}
+            "fisheye_inertial": (13, 40), "driver_si": (13, 40),
+            "async_inertial": (11, 16)}
+# Phase 22c, the asynchronous mono-inertial session: the path of seed 11
+# cut as tests/test_torch_async_inertial.py cuts it (16 frames, keyframes
+# at fps 3, IMU init at 0.9 / 1.5 / 2.1 s, 0.3 s keyframe spacing).
+ASYNC_IMU = dict(fps=3, init_times=(0.9, 1.5, 2.1), spacing=0.3)
 # Phase 19b: test_multisequence_session's world and path (seed 6), 18 + 18
 # frames, the second sequence 100 s after the first.
 DRIVER_MONO = (6, 18, (10.0, 110.0))
@@ -618,7 +642,7 @@ def render_scenario(name):
         R, t = traj["R_cw"], traj["t_cw"]
         frames = []
         for i in range(n):
-            if name == "mono_inertial":
+            if name in ("mono_inertial", "async_inertial"):
                 frames.append((render(world, R[i], t[i], rng=rng),))
             elif fisheye:
                 t_r = t[i] + np.asarray(T_RL, np.float32)
@@ -660,10 +684,17 @@ def _lateral_session(dev, scen, loop_closing):
     slam = SlamSystem(SystemConfig(tracker=TrackerConfig(fps=10),
                                    enable_loop_closing=loop_closing,
                                    device=str(dev)))
+    syncs = None
     with _Launches() as counter:
         t0 = time.perf_counter()
         for i in range(n):
-            slam.track_monocular(imgs[i], i * 0.1)
+            if loop_closing and i == n - 1:
+                fused = slam.tracker.stats.get("fused_frames", 0)
+                syncs = _count_syncs(lambda: slam.track_monocular(imgs[i],
+                                                                  i * 0.1))
+                syncs["fused"] = slam.tracker.stats["fused_frames"] > fused
+            else:
+                slam.track_monocular(imgs[i], i * 0.1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = slam.trajectory()
@@ -689,7 +720,29 @@ def _lateral_session(dev, scen, loop_closing):
         frame_ms_median_warm=float(np.median(warm)),
         frame_ms=[float(x) for x in np.asarray(slam.timings) * 1e3],
         stages=stats["stages"], stage_medians=stages, loops=stats["loops"],
-        launches=counter.counts, fused_frames=fused, wall_s=wall)
+        launches=counter.counts, fused_frames=fused, wall_s=wall, syncs=syncs)
+
+
+def _count_syncs(fn):
+    """Run ``fn`` under torch.cuda.set_sync_debug_mode("warn") and count
+    the warnings it raises by call site (the port's file and line)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" not in str(w.message):
+            continue
+        key = f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+        sites[key] = sites.get(key, 0) + 1
+    return dict(total=sum(sites.values()),
+                sites=dict(sorted(sites.items(), key=lambda kv: -kv[1])))
 
 
 def phase_loop_off(dev, scen):
@@ -715,6 +768,9 @@ def phase_default(dev, scen):
         raise AssertionError(f"loop closer not queried: {r['loops']}")
     if "loop/detect_correct" not in r["stage_medians"]:
         raise AssertionError("no loop/detect_correct stage")
+    sy = r["syncs"]
+    if not sy["fused"]:
+        raise AssertionError("the sync-counted last frame took no fused rounds")
     print(f"phase default-config path: {n} frames, loop closing on, state OK, "
           f"n_kf {r['n_kf']}, n_lm {r['n_lm']}, ATE {r['ate']:.5f} over "
           f"{r['nm']} frames; vocabulary {slam.voc.n_words} words, database "
@@ -722,6 +778,10 @@ def phase_default(dev, scen):
           f"warm per-frame median {r['frame_ms_median_warm']:.2f} ms, wall "
           f"{r['wall_s']:.2f} s; stage medians (ms) {json.dumps(r['stage_medians'])}; "
           f"launches {r['launches']} over {r['fused_frames']} fused frames")
+    print(f"phase sync count: the default session's last frame ({n}, warm, "
+          f"fused) under set_sync_debug_mode('warn'): {sy['total']} "
+          f"synchronizing calls at {len(sy['sites'])} call sites "
+          f"{json.dumps(sy['sites'])}")
     return slam, world, R_gt, t_gt, r
 
 
@@ -935,7 +995,15 @@ def _ring_pose(theta):
     return R_cw, (-R_cw @ (R_CAM * u).astype(np.float32)).astype(np.float32)
 
 
-def _build_ring(cfg, seed=11):
+# The revisits' drift scale per ring (phase 9 and 22a-b): the monocular
+# map drifts in scale, an inertial one keeps it, a stereo one drifts a
+# little (tests/test_torch_loop_closing.py's DRIFT).
+RING_SCALE = {"mono": 1.06, "inertial": 1.0, "stereo": 1.02}
+
+
+def _build_ring(cfg, seed=11, kind="mono"):
+    """The ring map; on the stereo ring (cfg.bf > 0) every observation
+    carries its virtual right coordinate u - bf / z."""
     import numpy as np
     import torch
     from orb_slam3_study_kr_tpu_torch.lie.sim3 import exp_sim3
@@ -948,7 +1016,7 @@ def _build_ring(cfg, seed=11):
                        cfg.fy * p[:, 1] / z + cfg.cy], -1)
         vis = ((z > 0.2) & (uv[:, 0] > 10) & (uv[:, 0] < cfg.width - 10)
                & (uv[:, 1] > 10) & (uv[:, 1] < cfg.height - 10))
-        return uv.astype(np.float32), vis
+        return uv.astype(np.float32), vis, z
 
     rng = np.random.default_rng(seed)
     phi = rng.uniform(0, 2 * np.pi, N_LM)
@@ -962,23 +1030,27 @@ def _build_ring(cfg, seed=11):
     def add_kf(R, t, R_gt=None, t_gt=None, bind_ids=None):
         Rg = R if R_gt is None else R_gt
         tg = t if t_gt is None else t_gt
-        uv, vis = project(Rg, tg, X)
+        uv, vis, z = project(Rg, tg, X)
         sel = np.nonzero(vis)[0][: m.max_kp]
         d = desc[sel].copy()
         for i in range(sel.size):
             d[i, rng.integers(0, 256, 6)] ^= 1
         tgt = lm_ids[sel] if bind_ids is None else bind_ids[sel]
+        uv_obs = uv[sel] + rng.normal(0, 0.3, (sel.size, 2)).astype(np.float32)
+        ur = ((uv_obs[:, 0] - cfg.bf / z[sel]).astype(np.float32)
+              if cfg.bf > 0 else None)
         m.add_keyframe(
-            R, t, uv[sel] + rng.normal(0, 0.3, (sel.size, 2)).astype(np.float32),
+            R, t, uv_obs,
             np.zeros(sel.size, np.int32), np.zeros(sel.size, np.float32),
             np.ones(sel.size, bool), d, frame_id=m.next_kf,
-            timestamp=float(m.next_kf), kp_lm=tgt)
+            timestamp=float(m.next_kf), kp_lm=tgt, ur=ur)
         gt.append((Rg, tg))
 
     for k in range(N_FIRST):
         add_kf(*_ring_pose(2 * np.pi * k / N_FIRST))
     Rd, td, sd = (a.numpy() for a in exp_sim3(torch.tensor(
-        [0.0, 0.05, 0.0, 0.15, 0.05, -0.1, np.log(1.06)], dtype=torch.float32)))
+        [0.0, 0.05, 0.0, 0.15, 0.05, -0.1, np.log(RING_SCALE[kind])],
+        dtype=torch.float32)))
     sd = float(sd)
     thetas = [0.0, 2 * np.pi / N_FIRST, 4 * np.pi / N_FIRST]
     X_est = (sd * X @ Rd.T + td).astype(np.float32)
@@ -998,20 +1070,28 @@ def _build_ring(cfg, seed=11):
     return m, dups, gt
 
 
-def phase_loop_correction(dev, ba_mesh=None):
-    """Phase 9; with ``ba_mesh`` (phase 20a) the GBA runs over its shards."""
+def phase_loop_correction(dev, ba_mesh=None, kind="mono"):
+    """Phase 9; with ``ba_mesh`` (phase 20a) the GBA runs over its shards;
+    ``kind`` "inertial" (22a: the fixed-scale Sim3 and the 4-DoF essential
+    graph) or "stereo" (22b: a Sim3, then the GBA with the stereo row) runs
+    that ring."""
     import numpy as np
     import torch
     from orb_slam3_study_kr_tpu_torch.bow import KeyframeDatabase, train_vocabulary
     from orb_slam3_study_kr_tpu_torch.pipeline.loop_closing import LoopCloser
     from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig
     cfg = TrackerConfig(fps=10, device=str(dev))
-    m, dups, gt = _build_ring(cfg)
+    if kind == "stereo":
+        cfg = TrackerConfig(fps=10, bf=cfg.fx * BASELINE, device=str(dev))
+    m, dups, gt = _build_ring(cfg, kind=kind)
     valid = np.nonzero(m.kf_valid)[0]
     descs = m.kf_desc[valid][m.kf_kp_valid[valid]][:4000]
     voc = train_vocabulary(descs, k=8, L=3, seed=0, device=dev)
     lc = LoopCloser(cfg=cfg, map=m, db=KeyframeDatabase(voc=voc), run_gba=True,
-                    ba_mesh=ba_mesh)
+                    ba_mesh=ba_mesh, inertial=kind == "inertial")
+    scales, correct = [], lc._correct
+    lc._correct = lambda kf, cand, sim3: (scales.append(float(sim3["s12"])),
+                                          correct(kf, cand, sim3))[1]
     with _Launches() as counter:
         t0 = time.perf_counter()
         at = [kf for kf in range(m.next_kf) if lc.process_keyframe(kf)]
@@ -1026,19 +1106,25 @@ def phase_loop_correction(dev, ba_mesh=None):
     st = lc.stats
     if max(errs) >= 0.25:
         raise AssertionError(f"revisit centre errors {errs}")
-    if not (alive < 0.5 and st["n_fused_loop"] > 50 and st["n_gba"] == 1):
+    if st["n_gba"] != 1 or (kind == "mono" and not (
+            alive < 0.5 and st["n_fused_loop"] > 50)):
         raise AssertionError(f"duplicates alive {alive}, stats {st}")
+    if kind == "inertial" and scales != [1.0]:
+        raise AssertionError(f"inertial: correction scales {scales}, not 1")
     if counter.counts["gated_nn"] < 1 or counter.counts["hamming_nn"] < 1:
         raise AssertionError(f"launches {counter.counts}")
     centres = [m.kf_center(kf).tolist() for kf in range(m.next_kf)]
+    name = dict(mono="loop correction", inertial="22a inertial loop (9i)",
+                stereo="22b stereo loop")[kind]
     if ba_mesh is None:
-        print(f"phase loop correction: ring world {m.next_kf} keyframes "
-              f"corrected once at {at[0]}; revisit centre errors "
-              f"{[round(e, 5) for e in errs]}; live share of duplicates "
-              f"{alive:.4f}; stats {json.dumps(st)}; {wall:.2f} s; launches "
-              f"{counter.counts}")
+        print(f"phase {name}: ring world {m.next_kf} keyframes "
+              f"corrected once at {at[0]}, scale {scales}; revisit centre "
+              f"errors {[round(e, 5) for e in errs]}; live share of "
+              f"duplicates {alive:.4f}; stats {json.dumps(st)}; {wall:.2f} s; "
+              f"launches {counter.counts}")
     return dict(corrected_at=at, centre_err=errs, dup_alive=alive, stats=st,
-                wall_s=wall, launches=counter.counts, centres=centres)
+                scales=scales, wall_s=wall, launches=counter.counts,
+                centres=centres)
 
 
 def _centers(R_gt, t_gt):
@@ -1224,12 +1310,16 @@ def _round_medians(t_ms, stages, rounds):
             t_ms[steady & (rd[:, 1] > 0) & (rd[:, 0] == 0)])
 
 
-def _inertial_session(dev, scen, sensor, tracker=None, **cfg_kw):
+def _inertial_session(dev, scen, sensor, tracker=None,
+                      init_times=IMU_INIT_TIMES, spacing=None, need_split=True,
+                      **cfg_kw):
     """One inertial session through its public entry point (imu= rows per
     frame), launch counters reset around it; per-frame times kept apart by
     the rounds each frame took (the tracker's fused and split counters),
     frames whose IMU stage changed left out.  ``tracker`` (default: the
-    pinhole TrackerConfig(fps=10)) and ``cfg_kw`` go to the SystemConfig."""
+    pinhole TrackerConfig(fps=10)), ``init_times`` and ``cfg_kw`` go to the
+    SystemConfig; ``spacing`` sets the tracker's imu_init_spacing; with the
+    worker on, the session is flushed before it is read."""
     import numpy as np
     import torch
     from orb_slam3_study_kr_tpu_torch.evaluation import ate_rmse
@@ -1239,9 +1329,11 @@ def _inertial_session(dev, scen, sensor, tracker=None, **cfg_kw):
     frames, imu, ts = scen["frames"], scen["imu"], scen["timestamps"]
     n = len(frames)
     slam = SlamSystem(SystemConfig(
-        sensor=sensor, imu_init_times=IMU_INIT_TIMES, baseline=BASELINE,
+        sensor=sensor, imu_init_times=init_times, baseline=BASELINE,
         tracker=tracker or TrackerConfig(fps=10, device=str(dev)),
         device=str(dev), **cfg_kw))
+    if spacing is not None:
+        slam.tracker.imu_init_spacing = spacing
     track = dict(mono=slam.track_monocular, rgbd=slam.track_rgbd,
                  stereo=slam.track_stereo)[sensor.split("-")[0]]
     per_frame = 2 if sensor.startswith("stereo") else 1
@@ -1255,6 +1347,7 @@ def _inertial_session(dev, scen, sensor, tracker=None, **cfg_kw):
             stages.append(slam.tracker.imu_stage)
             rounds.append([slam.tracker.stats.get(k, 0) - b for k, b in
                            zip(("fused_frames", "split_frames"), before)])
+        slam.flush()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     tr = slam.tracker
@@ -1275,7 +1368,7 @@ def _inertial_session(dev, scen, sensor, tracker=None, **cfg_kw):
     if k1 != per_frame * n:
         raise AssertionError(f"{sensor}: K1 launched {k1} times, expected "
                              f"{per_frame} per frame ({per_frame * n})")
-    if split < 1 or k2 < 4 * fused + 2 * split:
+    if (need_split and split < 1) or k2 < 4 * fused + 2 * split:
         raise AssertionError(f"{sensor}: K2 launched {k2} times over {fused} "
                              f"fused and {split} split frames")
     t_ms = np.asarray(slam.timings) * 1e3
@@ -1354,6 +1447,110 @@ def phase_rgbd_inertial(dev, scen):
                              f"{r['ate_metric']}")
     print(_inertial_line("RGB-D-inertial", r))
     return r
+
+
+def phase_async_inertial(dev, scen):
+    """22c: the mono-inertial session with the mapping worker on, cut as
+    ASYNC_IMU says; held to walls (the worker's timing makes it
+    nondeterministic), as tests/test_torch_async_inertial.py holds both
+    packages on the CPU."""
+    from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig
+    n = len(scen["frames"])
+    slam, r = _inertial_session(
+        dev, scen, "mono-inertial",
+        tracker=TrackerConfig(fps=ASYNC_IMU["fps"], device=str(dev)),
+        init_times=ASYNC_IMU["init_times"], spacing=ASYNC_IMU["spacing"],
+        need_split=False, async_mapping=True, enable_loop_closing=False)
+    worker, errors = dict(slam.async_map.stats), slam.async_map.pop_errors()
+    slam.shutdown()
+    if not (worker["n_processed"] > 0 and worker["n_errors"] == 0
+            and not errors):
+        raise AssertionError(f"async inertial: worker {worker}, {errors}")
+    if r["n_inertial_ba"] < 1:
+        raise AssertionError("async inertial: no local inertial BA ran")
+    if not (r["nm"] > n // 2 and r["ate_scaled"] < 0.35):
+        raise AssertionError(f"async inertial: nm {r['nm']} scaled ATE "
+                             f"{r['ate_scaled']}")
+    print(f"phase 22c async mono-inertial path: {n} frames, final state "
+          f"{r['state']}, IMU stage {r['imu_stage']} (reached at frames "
+          f"{r['stage_at']}), init scale {r['imu_init_scale']}; worker "
+          f"{worker}; {r['n_inertial_ba']} local inertial BAs; scaled ATE "
+          f"{r['ate_scaled']:.5f} over {r['nm']} frames; frame medians fused "
+          f"{r['frame_ms_median_fused']} / split {r['frame_ms_median_split']} "
+          f"ms; wall {r['wall_s']:.2f} s; launches {r['launches']} over "
+          f"{r['fused_frames']} fused and {r['split_frames']} split frames")
+    return dict(r, worker=worker)
+
+
+def phase_async_atlas(dev, scen_default, scen_atlas):
+    """22d: phase 13's scenario with the mapping worker on, in a session of
+    its own: the default path's 40 frames, the noise (a second map
+    spawns), the replay; the worker's loop callback verifies the merge and
+    posts a "merge" event, which the tracker applies."""
+    import threading
+    import numpy as np
+    import torch
+    from orb_slam3_study_kr_tpu_torch.evaluation import ate_rmse
+    from orb_slam3_study_kr_tpu_torch.pipeline import SlamSystem, SystemConfig
+    from orb_slam3_study_kr_tpu_torch.pipeline.tracking import TrackerConfig
+    n_first = len(scen_default["frames"])
+    frames = scen_default["frames"] + scen_atlas["frames"]
+    slam = SlamSystem(SystemConfig(tracker=TrackerConfig(fps=10),
+                                   async_mapping=True, device=str(dev)))
+    applied_on, posted = [], []
+    apply, post = slam._apply_merge, slam.async_map.post_event
+    slam._apply_merge = lambda *a: (
+        applied_on.append(threading.current_thread().name), apply(*a))[1]
+    slam.async_map.post_event = lambda kind, payload=None: (
+        posted.append(kind), post(kind, payload))[1]
+    n_maps_max, merged_at = 1, None
+    with _Launches() as counter:
+        t0 = time.perf_counter()
+        for i, img in enumerate(frames):
+            slam.track_monocular(img, i * 0.1)
+            n_maps_max = max(n_maps_max, len(slam.atlas.maps))
+            if (merged_at is None and n_maps_max > 1
+                    and len(slam.atlas.maps) == 1):
+                merged_at = i
+        slam.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    worker, merger = dict(slam.async_map.stats), dict(slam.merger.stats)
+    n_maps = len(slam.atlas.maps)
+    rows = slam.trajectory()
+    slam.shutdown()
+    if n_maps_max < 2 or n_maps != 1:
+        raise AssertionError(f"async Atlas: {n_maps_max} maps at most, "
+                             f"{n_maps} at the end; merger {merger}")
+    if "merge" not in posted or not applied_on or set(applied_on) != {
+            threading.main_thread().name}:
+        raise AssertionError(f"async Atlas: events {posted}, merges applied "
+                             f"on {applied_on}")
+    if worker["n_errors"] != 0:
+        raise AssertionError(f"async Atlas: worker {worker}")
+    k1, k3 = counter.counts["fast_nms_blur"], counter.counts["hamming_nn"]
+    if k1 != len(frames) or k3 < max(1, merger["n_attempts"]):
+        raise AssertionError(f"async Atlas: launches {counter.counts} over "
+                             f"{len(frames)} frames, merger {merger}")
+    centers = _centers(scen_default["R_gt"], scen_default["t_gt"])
+    ts0 = (n_first + N_BLACK) * 0.1
+    gt_ts = np.concatenate([np.arange(n_first) * 0.1,
+                            ts0 + np.arange(N_REPLAY) * 0.1])
+    gt_xyz = np.concatenate([centers[:n_first], centers[:N_REPLAY]])
+    ate, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4], gt_ts, gt_xyz, True)
+    if not (nm > n_first and ate < 0.25):
+        raise AssertionError(f"async Atlas: post-merge scaled ATE {ate} over "
+                             f"{nm}")
+    print(f"phase 22d async Atlas path: {n_first} frames, {N_BLACK} "
+          f"noise frames (maps at most {n_maps_max}), replay of {N_REPLAY}: "
+          f"one map again (first seen at frame {merged_at}); events "
+          f"{posted}; merges applied on {applied_on}; merger "
+          f"{json.dumps(merger)}; worker {worker}; post-merge scaled ATE "
+          f"{ate:.5f} over {nm} frames; wall {wall:.2f} s; launches "
+          f"{counter.counts}")
+    return dict(n_maps_max=n_maps_max, merged_at=merged_at, events=posted,
+                applied_on=applied_on, merger=merger, worker=worker,
+                ate_scaled=ate, nm=nm, wall_s=wall, launches=counter.counts)
 
 
 def phase_fisheye_mono(dev, scen):
@@ -2137,10 +2334,19 @@ def main(argv=None):
     out["ba_scaling"] = run("ba_scaling", phase_ba_scaling, dev)
     out["workers"] = run("workers", phase_workers, dev)
     out["knobs"] = run("knobs", phase_knobs, dev, scen["loop_off"])
+    out["loop_inertial"] = run("loop_inertial", phase_loop_correction, dev,
+                               None, "inertial")
+    out["loop_stereo"] = run("loop_stereo", phase_loop_correction, dev, None,
+                             "stereo")
+    out["async_inertial"] = run("async_inertial", phase_async_inertial, dev,
+                                scen["async_inertial"])
+    out["async_atlas"] = run("async_atlas", phase_async_atlas, dev,
+                             scen["default"], scen["atlas"])
     paths = ("loop_off", "default", "reloc", "atlas", "loop", "stereo", "rgbd",
              "async", "mono_inertial", "rgbd_inertial", "fisheye_mono",
              "fisheye_stereo", "fisheye_inertial", "driver_si", "driver_mono",
-             "mesh_loop", "knobs")
+             "mesh_loop", "knobs", "loop_inertial", "loop_stereo",
+             "async_inertial", "async_atlas")
     launches = {k: sum(out[p]["launches"][k] for p in paths)
                 for k in ("fast_nms_blur", "gated_nn", "hamming_nn")}
     kernels = []

@@ -195,6 +195,27 @@ def words_and_weights(voc, desc, valid):
     return transform(voc, desc, valid)
 
 
+def _dense(n_words, words, w):
+    v = torch.zeros(n_words, dtype=torch.float32, device=w.device)
+    v.index_add_(0, words, w)
+    return v / torch.clamp(torch.sum(torch.abs(v)), min=1e-9)
+
+
+def bow_vector(voc: BinaryVocabulary, desc, valid):
+    """Dense L1-normalized tf-idf vector (n_words,)."""
+    return _dense(voc.n_words, *transform(voc, desc, valid))
+
+
+def bow_vector_any(voc, desc, valid):
+    """Dense L1-normalized tf-idf vector for either vocabulary class."""
+    return _dense(voc.n_words, *words_and_weights(voc, desc, valid))
+
+
+def l1_score(v1, v2):
+    """DBoW2 L1 scoring: 1 - 0.5 |v1 - v2|_1 for L1-normalized vectors."""
+    return 1.0 - 0.5 * torch.sum(torch.abs(v1 - v2), dim=-1)
+
+
 def load_dbow2_text(path, device="cuda") -> TreeVocabulary:
     """Load a DBoW2 text vocabulary (the ORBvoc.txt format) onto ``device``
     ("cuda" raises without a card).

@@ -6,14 +6,17 @@ hypotheses of each model are built with one batched SVD and scored against
 all N matches at once; the 4 essential and 8 Faugeras homography motion
 candidates are verified by one batched triangulation.  Thresholds: chi2
 5.991 / 3.841 at sigma = 1, model select SH/(SH+SF) > 0.5, cheirality +
-parallax gating.  The minimal sets are drawn with a torch.Generator, or
-passed in (tests inject the reference's jax.random draws).
+parallax gating.  A singular system gives NaN, as in the reference
+(``solvers/linalg_nan``: every solve, inverse and SVD here).  The minimal
+sets are drawn with a torch.Generator, or passed in (tests inject the
+reference's jax.random draws).
 """
 
 import torch
 
 from orb_slam3_study_kr_tpu_torch.lie.so3 import exp_so3, hat
 from orb_slam3_study_kr_tpu_torch.ops.geometry import triangulate_dlt
+from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import inv_nan, solve_nan, svd_nan
 
 CHI2_H = 5.991
 CHI2_F = 3.841
@@ -52,7 +55,7 @@ def sample_minimal_sets(generator, mask, iters, k=8):
 
 
 def _null_vector(A):
-    return torch.linalg.svd(A, full_matrices=True).Vh[..., -1, :]
+    return svd_nan(A)[2][..., -1, :]
 
 
 def _homography_dlt(p1, p2):
@@ -68,7 +71,7 @@ def _homography_dlt(p1, p2):
 
 
 def _rank2(F):
-    U, S, Vh = torch.linalg.svd(F)
+    U, S, Vh = svd_nan(F)
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
     return U @ (S[..., :, None] * Vh)
 
@@ -122,7 +125,7 @@ def _apply_h(H, src):
 
 def _score_homography(H21, kp1, kp2, mask, sigma2):
     """Symmetric transfer error score (T,) and inliers (T, N)."""
-    H12 = torch.linalg.inv(H21)
+    H12 = inv_nan(H21)
     u, v = _apply_h(H21, kp1[None])
     chi2_12 = ((kp2[None, :, 0] - u) ** 2 + (kp2[None, :, 1] - v) ** 2) / sigma2
     u, v = _apply_h(H12, kp2[None])
@@ -207,7 +210,7 @@ def _w_matrix(like):
 
 
 def _proper_svd(E):
-    U, _, Vh = torch.linalg.svd(E)
+    U, _, Vh = svd_nan(E)
     return U * torch.sign(torch.linalg.det(U)), Vh * torch.sign(torch.linalg.det(Vh))
 
 
@@ -240,7 +243,7 @@ def _refine_essential(E0, xn1, xn2, w, iters=8, damping=1e-4):
         J = torch.func.jacfwd(sampson)(params)
         Jw = J * w[:, None]
         H = Jw.T @ J + damping * eye6
-        params = params - torch.linalg.solve(H, Jw.T @ r)
+        params = params - solve_nan(H, Jw.T @ r)
     R = R0 @ exp_so3(params[:3])
     t = t0 + params[3:]
     t = t / torch.clamp(torch.linalg.norm(t), min=1e-12)
@@ -258,7 +261,7 @@ def _decompose_essential(E):
 def _decompose_homography_faugeras(Hn):
     """8 candidate (R, t) motions from a calibrated homography (Faugeras &
     Lustman).  Returns R (8, 3, 3), t (8, 3) unit norm."""
-    U, d, Vh = torch.linalg.svd(Hn)
+    U, d, Vh = svd_nan(Hn)
     s = torch.linalg.det(U) * torch.linalg.det(Vh)
     d1, d2, d3 = d[0], d[1], d[2]
     denom = torch.clamp(d1 * d1 - d3 * d3, min=1e-12)
@@ -308,7 +311,7 @@ def reconstruct_two_views(kp1, kp2, mask, K, sigma=1.0, iters=RANSAC_ITERS,
     sigma2 = sigma * sigma
     kp1n, T1 = _normalize_points(kp1, mask)
     kp2n, T2 = _normalize_points(kp2, mask)
-    T2inv = torch.linalg.inv(T2)
+    T2inv = inv_nan(T2)
     if sets is None:
         idx_h = sample_minimal_sets(generator, mask, iters)
         idx_f = sample_minimal_sets(generator, mask, iters)
@@ -342,7 +345,7 @@ def reconstruct_two_views(kp1, kp2, mask, K, sigma=1.0, iters=RANSAC_ITERS,
 
     use_h = SH / torch.clamp(SH + SF, min=1e-12) > 0.50
 
-    Kinv = torch.linalg.inv(K)
+    Kinv = inv_nan(K)
     c = torch.stack([K[0, 2], K[1, 2]])
     f = torch.stack([K[0, 0], K[1, 1]])
     xn1 = (kp1 - c) / f

@@ -50,3 +50,24 @@ def se3_inverse(R, t):
 def se3_compose(Ra, ta, Rb, tb):
     """(Ra, ta) @ (Rb, tb): apply b then a."""
     return Ra @ Rb, torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+def se3_apply(R, t, p):
+    """Transform points p (..., 3)."""
+    return torch.einsum("...ij,...j->...i", R, p) + t
+
+
+def se3_matrix(R, t):
+    """(R, t) -> (..., 4, 4) homogeneous matrix."""
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(*R.shape[:-2], 1, 4)
+    return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)
+
+
+def se3_from_matrix(T):
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def se3_identity(batch_shape=(), dtype=torch.float32, device="cpu"):
+    R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
+    return R, torch.zeros((*batch_shape, 3), dtype=dtype, device=device)

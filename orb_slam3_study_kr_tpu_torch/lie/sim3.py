@@ -9,6 +9,7 @@ batch axes.
 import torch
 
 from orb_slam3_study_kr_tpu_torch.lie.so3 import _EPS, _theta, exp_so3, hat, log_so3
+from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import solve_nan
 
 
 def _sim3_W(phi, sigma):
@@ -66,7 +67,7 @@ def log_sim3(R, t, s):
     phi = log_so3(R)
     sigma = torch.log(s)
     W = _sim3_W(phi, sigma)
-    rho = torch.linalg.solve(W, t[..., None])[..., 0]
+    rho = solve_nan(W, t[..., None])[..., 0]
     return torch.cat([phi, rho, sigma[..., None]], dim=-1)
 
 
@@ -85,3 +86,9 @@ def sim3_compose(Ra, ta, sa, Rb, tb, sb):
 
 def sim3_apply(R, t, s, p):
     return s[..., None] * torch.einsum("...ij,...j->...i", R, p) + t
+
+
+def sim3_identity(batch_shape=(), dtype=torch.float32, device="cpu"):
+    R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
+    t = torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
+    return R, t, torch.ones(batch_shape, dtype=dtype, device=device)

@@ -129,3 +129,11 @@ def make_level_wh(cfg) -> np.ndarray:
     return np.asarray(
         [[cfg.level_sizes[l][1], cfg.level_sizes[l][0]]
          for l in range(cfg.n_levels)], np.float32)
+
+
+def stack_pyramid(pyr_levels):
+    """Pad a list of per-level images with zeros into one (L, H, W) stack
+    at level 0's size."""
+    H, W = pyr_levels[0].shape
+    return torch.stack([torch.nn.functional.pad(
+        img, (0, W - img.shape[1], 0, H - img.shape[0])) for img in pyr_levels])

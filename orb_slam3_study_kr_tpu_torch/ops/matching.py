@@ -80,6 +80,13 @@ def window_mask(uv1, uv2, radius):
     return (d[..., 0] <= radius) & (d[..., 1] <= radius)
 
 
+def scale_band_mask(level1, level2, min_delta=-1, max_delta=1):
+    """(N1, N2) mask over octave compatibility (SearchByProjection keeps a
+    candidate level within [predicted - 1, predicted + 1])."""
+    d = level2[None, :] - level1[:, None]
+    return (d >= min_delta) & (d <= max_delta)
+
+
 def search_for_initialization(
     f1_uv, f1_desc, f1_angle, f1_valid,
     f2_uv, f2_desc, f2_angle, f2_valid,

@@ -224,6 +224,14 @@ def subpixel_offset_maps(score_raw):
     return dx.clamp(-0.5, 0.5), dy.clamp(-0.5, 0.5)
 
 
+def subpixel_refine(score_raw, xs, ys):
+    """Per-keypoint parabolic refinement: integer (xs, ys) plus the dense
+    offsets at (ys, xs)."""
+    dx, dy = subpixel_offset_maps(score_raw)
+    return (xs.to(torch.float32) + dx[ys, xs],
+            ys.to(torch.float32) + dy[ys, xs])
+
+
 # ---------------------------------------------------------------------------
 # Pyramid
 
@@ -317,6 +325,66 @@ def bilinear_window(win, py, px):
             c = c + ay * torch.gather(flat, 1, yi * S + xi)
         out = out + c * bx
     return out
+
+
+def gather_patches(img, xs, ys, radius):
+    """(N, 2r+1, 2r+1) patches centred at integer (ys, xs) of the image
+    padded with r zeros."""
+    padded = torch.nn.functional.pad(img, (radius,) * 4)
+    return gather_windows(padded[None], torch.zeros_like(ys), ys, xs,
+                          2 * radius + 1)
+
+
+def compute_orientation(img, xs, ys):
+    """Intensity-centroid angle (radians) per integer keypoint over the
+    radius-15 disc (IC_Angle, ORBextractor.cc:76)."""
+    return _orientation_from_patches(
+        gather_patches(img.to(torch.float32), xs, ys, SUPER_R))
+
+
+def compute_descriptors(img_blur, xs, ys, angles):
+    """(N, 256) uint8 rotated-BRIEF bits at integer keypoints: the pattern
+    offsets rotated by the keypoint angle and rounded to whole pixels
+    (computeOrbDescriptor's scheme, ORBextractor.cc:107).  extract_orb
+    samples the same pattern bilinearly at the refined centre instead."""
+    radius = PATTERN_RADIUS + 2
+    p = 2 * radius + 1
+    patches = gather_patches(img_blur, xs, ys, radius).reshape(-1, p * p)
+    pat = torch.as_tensor(PATTERN, dtype=torch.float32, device=img_blur.device)
+    ca = torch.cos(angles)[:, None, None]
+    sa = torch.sin(angles)[:, None, None]
+    py, px = pat[..., 0][None], pat[..., 1][None]            # (1, 256, 2)
+    iy = (torch.round(px * sa + py * ca) + radius).long()
+    ix = (torch.round(px * ca - py * sa) + radius).long()
+    vals = torch.gather(patches, 1, (iy * p + ix).reshape(len(xs), -1))
+    vals = vals.reshape(-1, DESC_BITS, 2)
+    return (vals[..., 0] < vals[..., 1]).to(torch.uint8)
+
+
+def gather_oriented_patches(img, xs, ys, angles, radius=PATCH_R):
+    """(N, 2r+1, 2r+1) patches rotated to each keypoint's canonical
+    orientation, bilinear on the zero-padded level image (the semantics
+    that extract_orb's ``_oriented_patches_from_patches`` batches; the
+    taps here add in the reference's order, x first)."""
+    span = int(np.ceil(radius * 1.5)) + 2
+    padded = torch.nn.functional.pad(img.to(torch.float32), (span,) * 4)
+    H, W = padded.shape
+    grid = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                        device=img.device)
+    gy, gx = torch.meshgrid(grid, grid, indexing="ij")
+    ca = torch.cos(angles)[:, None, None]
+    sa = torch.sin(angles)[:, None, None]
+    px = xs.to(torch.float32)[:, None, None] + gx * ca - gy * sa + span
+    py = ys.to(torch.float32)[:, None, None] + gx * sa + gy * ca + span
+    x0, y0 = torch.floor(px), torch.floor(py)
+    wx, wy = px - x0, py - y0
+    x0, y0 = x0.long(), y0.long()
+
+    def at(y, x):  # out-of-range reads clamp, as a jnp gather does
+        return padded[y.clamp(0, H - 1), x.clamp(0, W - 1)]
+
+    return ((1 - wy) * ((1 - wx) * at(y0, x0) + wx * at(y0, x0 + 1))
+            + wy * ((1 - wx) * at(y0 + 1, x0) + wx * at(y0 + 1, x0 + 1)))
 
 
 def _orientation_from_patches(raw_sp):
@@ -462,9 +530,6 @@ def extract_orb(img, cfg: OrbConfig, with_pyramid: bool = False):
         patch=patch,
     )
     if with_pyramid:
-        stack = []
-        for l in range(cfg.n_levels):
-            h, w = cfg.level_sizes[l]
-            stack.append(torch.nn.functional.pad(blur[l], (0, W0 - w, 0, H0 - h)))
-        return feats, torch.stack(stack)
+        from orb_slam3_study_kr_tpu_torch.ops.klt import stack_pyramid
+        return feats, stack_pyramid(blur)
     return feats

@@ -24,6 +24,24 @@ def _unit(b):
     return b / torch.clamp(torch.linalg.norm(b, dim=-1, keepdim=True), min=1e-12)
 
 
+def match_and_triangulate(
+    R1, t1, R2, t2, project_fn, focal,
+    uv1, b1, level1, desc1, free1,
+    uv2, b2, level2, desc2, free2,
+    angle1=None, angle2=None,
+    scale_factor=1.2, epi_chi2=EPI_CHI2, nn_ratio=0.9,
+):
+    """One keyframe pair: match the free keypoints of KF1 against KF2 along
+    epipolar planes and triangulate the accepted pairs; without angles no
+    rotation check.  Returns dict idx2, matched, X, good, cos_par per kp1."""
+    out = _match_pairs(R1, t1, R2[None], t2[None], project_fn, focal,
+                       uv1, b1, level1, desc1, free1, uv2[None], b2[None],
+                       level2[None], desc2[None], free2[None], angle1,
+                       None if angle2 is None else angle2[None],
+                       scale_factor, epi_chi2, nn_ratio)
+    return {k: v[0] for k, v in out.items()}
+
+
 def match_and_triangulate_batch(
     R1, t1, R2s, t2s, project_fn, focal,
     uv1, b1, level1, desc1, free1,
@@ -36,6 +54,17 @@ def match_and_triangulate_batch(
 
     KF1 arrays (N1, ...); neighbour arrays (NB, N2, ...), poses R2s (NB,3,3),
     t2s (NB, 3).  Returns dict idx2 (NB, N1), X (NB, N1, 3), good (NB, N1)."""
+    out = _match_pairs(R1, t1, R2s, t2s, project_fn, focal,
+                       uv1, b1, level1, desc1, free1,
+                       uv2s, b2s, level2s, desc2s, free2s, angle1, angle2s,
+                       scale_factor, epi_chi2, nn_ratio)
+    return {k: out[k] for k in ("idx2", "X", "good")}
+
+
+def _match_pairs(R1, t1, R2s, t2s, project_fn, focal,
+                 uv1, b1, level1, desc1, free1,
+                 uv2s, b2s, level2s, desc2s, free2s, angle1, angle2s,
+                 scale_factor, epi_chi2, nn_ratio):
     NB = R2s.shape[0]
     n1 = uv1.shape[0]
     dev = uv1.device
@@ -64,8 +93,9 @@ def match_and_triangulate_batch(
     back = torch.argmin(d, dim=1)                          # (NB, N2)
     matched = matched & (torch.gather(back, 1, idx2)
                          == torch.arange(n1, device=dev))
-    matched = rotation_consistency(angle1.expand(NB, n1), angle2s, idx2,
-                                   matched)
+    if angle1 is not None:
+        matched = rotation_consistency(angle1.expand(NB, n1), angle2s, idx2,
+                                       matched)
 
     gidx = idx2[..., None].expand(NB, n1, 3)
     b2m = torch.gather(b2n, 1, gidx)
@@ -95,4 +125,4 @@ def match_and_triangulate_batch(
     sc_ok = (ratio_dist < ratio_oct * 1.5) & (ratio_dist * 1.5 > ratio_oct)
     good = (matched & z_ok & (cos_par < MIN_PARALLAX_COS) & (cos_par > 0)
             & reproj_ok & sc_ok & torch.isfinite(X).all(dim=-1))
-    return dict(idx2=idx2, X=X, good=good)
+    return dict(idx2=idx2, matched=matched, X=X, good=good, cos_par=cos_par)

@@ -42,6 +42,7 @@ import torch.distributed as dist
 
 from orb_slam3_study_kr_tpu_torch.lie.se3 import exp_se3, se3_compose
 from orb_slam3_study_kr_tpu_torch.solvers import robust
+from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import inv_nan, solve_nan
 from orb_slam3_study_kr_tpu_torch.solvers.local_ba import (_diag, _schur_pcg,
                                                            _seg_sum)
 from orb_slam3_study_kr_tpu_torch.solvers.reproj import residual_and_jacobians
@@ -244,7 +245,7 @@ def distributed_bundle_adjust(
             # Padding landmarks have Hll = 0: lam I keeps their block
             # invertible, and lm_mask zeroes their update.
             Hll_d = Hll + lam_s * (e3[None] + _diag(Hll, 3))
-            Hll_inv = torch.linalg.inv(Hll_d) * s["lmm"][:, None, None]
+            Hll_inv = inv_nan(Hll_d) * s["lmm"][:, None, None]
             loc.append((Hll_inv, bl, E))
         Hpp = mesh.psum(Hpp_p)
         bp = mesh.psum(bp_p)
@@ -268,7 +269,7 @@ def distributed_bundle_adjust(
             # bp is reduced already: it enters once, after the reduction.
             rhs = mesh.psum(rhs_p) - bp.reshape(6 * K)
             S = S * (1 - fixd)[:, None] * (1 - fixd)[None, :] + torch.diag(fixd)
-            dp = torch.linalg.solve(S, rhs).reshape(K, 6)
+            dp = solve_nan(S, rhs).reshape(K, 6)
 
         dR, dtr = exp_se3(dp)
         R_new, t_new = se3_compose(dR, dtr, R_all, t_all)

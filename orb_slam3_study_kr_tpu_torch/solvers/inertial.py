@@ -25,28 +25,7 @@ from orb_slam3_study_kr_tpu_torch.imu.preintegration import (
 from orb_slam3_study_kr_tpu_torch.lie.so3 import exp_so3, log_so3
 from orb_slam3_study_kr_tpu_torch.ops.stereo import nanmedian_midpoint
 from orb_slam3_study_kr_tpu_torch.solvers import robust
-
-
-def _nan_where(bad, a):
-    return torch.where(bad, torch.full_like(a, float("nan")), a)
-
-
-def cholesky_nan(A):
-    """Lower Cholesky factor; NaN where the factorization fails (as
-    jnp.linalg.cholesky), batched over leading axes."""
-    L, info = torch.linalg.cholesky_ex(A)
-    return _nan_where((info != 0)[..., None, None], L)
-
-
-def inv_nan(A):
-    Ai, info = torch.linalg.inv_ex(A)
-    return _nan_where((info != 0)[..., None, None], Ai)
-
-
-def solve_nan(A, b):
-    """A^-1 b; NaN where A is singular (as jnp.linalg.solve)."""
-    x, info = torch.linalg.solve_ex(A, b)
-    return _nan_where((info != 0).reshape(info.shape + (1,) * (x.dim() - info.dim())), x)
+from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import cholesky_nan, inv_nan, solve_nan
 
 
 def edge_whitening(pre_stack: Preintegrated, eps=1e-8):

@@ -26,7 +26,8 @@ from orb_slam3_study_kr_tpu_torch.imu.preintegration import (
 from orb_slam3_study_kr_tpu_torch.lie.so3 import exp_so3, hat, normalize_rotation
 from orb_slam3_study_kr_tpu_torch.solvers import robust
 from orb_slam3_study_kr_tpu_torch.solvers.inertial import (
-    batched_jacobian, edge_whitening, inv_nan, solve_nan)
+    batched_jacobian, edge_whitening)
+from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import inv_nan, solve_nan
 
 # Huber delta^2 on the whitened 9-D inertial edges (Optimizer.cc:543).
 CHI2_INERTIAL = 16.92

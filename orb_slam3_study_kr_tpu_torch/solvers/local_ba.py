@@ -22,6 +22,7 @@ import torch
 
 from orb_slam3_study_kr_tpu_torch.lie.se3 import exp_se3, se3_compose
 from orb_slam3_study_kr_tpu_torch.solvers import robust
+from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import inv_nan, solve_nan
 from orb_slam3_study_kr_tpu_torch.solvers.reproj import residual_and_jacobians
 
 
@@ -74,7 +75,7 @@ def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
                           for Y, (_, _, Es, op, _) in zip(Ys, shards)])
     eye6 = torch.eye(6, dtype=dt, device=Hpp_d.device)
     Dk = Dk * freeK[..., None] + eye6[None] * fixed[:, None, None]
-    Minv = torch.linalg.inv(Dk)
+    Minv = inv_nan(Dk)
 
     def u2_part(v, Hi, Es, op, ol):
         v = v.to(Es.device)
@@ -177,7 +178,7 @@ def bundle_adjust(project_fn, project_jac_fn,
 
         Hll_d = Hll + lam * (eye3[None] + _diag(Hll, 3))
         Hpp_d = Hpp + lam * (eye6[None] + _diag(Hpp, 6))
-        Hll_inv = torch.linalg.inv(Hll_d) * lm_mask[:, None, None]
+        Hll_inv = inv_nan(Hll_d) * lm_mask[:, None, None]
 
         if assembly == "dense":
             # Dense cross block W (K, M, 6, 3) and the reduced camera system.
@@ -187,7 +188,7 @@ def bundle_adjust(project_fn, project_jac_fn,
             S = S + torch.block_diag(*Hpp_d)
             rhs = -(bp - torch.einsum("kmab,mb->ka", Wi, bl)).reshape(6 * K)
             S = S * (1 - fixd)[:, None] * (1 - fixd)[None, :] + torch.diag(fixd)
-            dp = torch.linalg.solve(S, rhs).reshape(K, 6)
+            dp = solve_nan(S, rhs).reshape(K, 6)
         else:
             dp = _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm,
                             fixed, n_cg)

@@ -15,6 +15,7 @@ import torch
 
 from orb_slam3_study_kr_tpu_torch.lie.sim3 import (exp_sim3, log_sim3,
                                                    sim3_compose, sim3_inverse)
+from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import solve_nan
 
 
 def forward_jacobian(fn, x):
@@ -109,7 +110,7 @@ def optimize_pose_graph(R, t, s,            # (K,3,3), (K,3), (K,)
         b.index_add_(0, ej, torch.einsum("eri,e,er->ei", Jj, w, r_all))
 
         H = H * free[:, None] * free[None, :] + torch.diag(fixd) + lam * eye
-        d = -torch.linalg.solve(H, b.reshape(K * D)).reshape(K, D)
+        d = -solve_nan(H, b.reshape(K * D)).reshape(K, D)
         d = d * (1 - fixed)[:, None]
         R_n, t_n, s_n = _apply_tangent(d, R, t, s, dof)
 

@@ -12,6 +12,7 @@ import torch
 
 from orb_slam3_study_kr_tpu_torch.lie.se3 import exp_se3, se3_compose
 from orb_slam3_study_kr_tpu_torch.solvers import robust
+from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import solve_nan
 from orb_slam3_study_kr_tpu_torch.solvers.reproj import residual_and_jacobians
 
 N_ROUNDS = 4
@@ -58,7 +59,7 @@ def optimize_pose(project_fn, project_jac_fn, R_cw, t_cw, X, uv_obs, level,
             H = torch.einsum("nia,n,nib->ab", J_pose, w, J_pose)
             b = torch.einsum("nia,n,ni->a", J_pose, w, r)
             H = H + damping * eye6
-            delta = -torch.linalg.solve(H, b)
+            delta = -solve_nan(H, b)
             dR, dt = exp_se3(delta)
             R_new, t_new = se3_compose(dR, dt, R, t)
             r_new = residuals(R_new, t_new)[0]

@@ -12,6 +12,7 @@ import torch
 
 from orb_slam3_study_kr_tpu_torch.lie.so3 import exp_so3
 from orb_slam3_study_kr_tpu_torch.solvers import robust
+from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import solve_nan
 from orb_slam3_study_kr_tpu_torch.solvers.pnp import minimal_sets
 from orb_slam3_study_kr_tpu_torch.solvers.pose_graph import forward_jacobian
 
@@ -142,7 +143,7 @@ def optimize_sim3(P1, P2, mask, uv1, uv2, K, R12, t12, s12, n_iters=10,
             r = flat(x, w1, w2)
             J = forward_jacobian(lambda xx: flat(xx, w1, w2), x)
             H = J.T @ J + lam * eye7
-            x_new = x - torch.linalg.solve(H, J.T @ r)
+            x_new = x - solve_nan(H, J.T @ r)
             better = torch.sum(flat(x_new, w1, w2) ** 2) < torch.sum(r ** 2)
             x = torch.where(better, x_new, x)
             lam = torch.where(better, torch.clamp(lam * 0.5, min=1e-7),

@@ -7,6 +7,8 @@ map-table growth.  Under ``-m slow``: the blackout session of
 ``tests/test_atlas_merge_e2e.py`` through both packages, and the pipeline
 under tiny table caps on the port."""
 
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -233,12 +235,16 @@ def test_merge_fix_scale_as_reference(async_mapping):
 def test_async_merge_event():
     """A two-map session with the worker: the worker's loop callback
     verifies and posts "merge"; after flush() the maps are one (or the
-    re-verify dropped it as stale), and the worker raised nothing."""
+    re-verify dropped it as stale), the merge was applied on the tracker's
+    thread, and the worker raised nothing."""
     slam = _two_maps("torch", async_mapping=True)
-    posted = []
+    posted, applied_on = [], []
     post = slam.async_map.post_event
     slam.async_map.post_event = lambda kind, payload=None: (
         posted.append(kind), post(kind, payload))
+    apply = slam._apply_merge
+    slam._apply_merge = lambda *a: (
+        applied_on.append(threading.current_thread()), apply(*a))[1]
     try:
         slam.async_map.submit(lambda: slam._on_keyframe_for_loops(KF))
         slam.flush()
@@ -250,6 +256,7 @@ def test_async_merge_event():
         if stale == 0:
             assert slam.tracker.velocity is None
             assert slam.local_mapper.stats["n_welding_ba"] == 1
+            assert applied_on == [threading.main_thread()]
     finally:
         slam.shutdown()
 
@@ -427,17 +434,19 @@ def test_long_session_growth_with_culling():
 
 
 # ----------------------------------------------------------------------
-def _blackout(pkg):
+def _blackout(pkg, async_mapping=False):
     """tests/test_atlas_merge_e2e.py's session: 26 frames, 14 frames of
     noise, the 26 frames again; the merge wall and the scaled ATE over both
     segments.  The port gets the reference's Sim3 draws for the loop
-    closers (one stream for all of them) and the merger."""
+    closers (one stream for all of them) and the merger.  With the worker
+    on, the merge comes through its "merge" event; the threads that
+    applied merges are recorded."""
     rng = np.random.default_rng(3)
     world = synthetic.make_textured_world(rng, depth=6.0)
     n_seg, blackout = 26, 14
     R_gt, t_gt = synthetic.lateral_trajectory(n_seg, x_span=1.0, z_span=0.0,
                                               y_amp=0.0)
-    kw = dict(vocab_min_kfs=4, min_kf_spawn=6)
+    kw = dict(vocab_min_kfs=4, min_kf_spawn=6, async_mapping=async_mapping)
     if pkg == "jax":
         slam = JSlamSystem(JSystemConfig(tracker=JTrackerConfig(fps=10), **kw))
     else:
@@ -445,6 +454,10 @@ def _blackout(pkg):
                                        device="cpu", **kw),
                           loop_uniforms_fn=_JaxUniforms(17),
                           merge_uniforms_fn=_JaxUniforms(23))
+    applied_on = []
+    apply = slam._apply_merge
+    slam._apply_merge = lambda *a: (
+        applied_on.append(threading.current_thread().name), apply(*a))[1]
     ts, merged, n_maps_max, n_kf_1 = 0.0, False, 1, 0
     for seg in ("first", "blackout", "revisit"):
         for i in range(blackout if seg == "blackout" else n_seg):
@@ -458,7 +471,12 @@ def _blackout(pkg):
             merged |= seg == "revisit" and len(slam.atlas.maps) == 1
         if seg == "first":
             n_kf_1 = slam.atlas.active_map.n_kf
+    if async_mapping:
+        slam.flush()
+        merged |= len(slam.atlas.maps) == 1
     rows = slam.trajectory()
+    if async_mapping:
+        slam.shutdown()
     gt_ts = np.concatenate([np.arange(n_seg) * 0.1,
                             (n_seg + blackout) * 0.1 + np.arange(n_seg) * 0.1])
     centers = -np.einsum("nij,nj->ni", R_gt.transpose(0, 2, 1), t_gt)
@@ -466,21 +484,25 @@ def _blackout(pkg):
                            np.concatenate([centers, centers]), with_scale=True)
     return dict(merged=merged, n_maps_max=n_maps_max, n_kf_1=n_kf_1,
                 n_kf=slam.atlas.active_map.n_kf, ate=float(rmse), nm=nm,
-                merger=dict(slam.merger.stats) if slam.merger else None)
+                merger=dict(slam.merger.stats) if slam.merger else None,
+                applied_on=applied_on)
 
 
 @pytest.mark.slow
-def test_blackout_merge_both_packages():
+@pytest.mark.parametrize("async_mapping", [False, True], ids=["sync", "async"])
+def test_blackout_merge_both_packages(async_mapping):
     """Both packages: a second map is spawned in the blackout and welded
     back on the revisit (one map at the end, keeping both segments'
     keyframes), and the post-merge scaled ATE over both segments is
-    < 0.25 in each; both values are printed."""
-    out = {pkg: _blackout(pkg) for pkg in ("jax", "torch")}
+    < 0.25 in each; both values are printed.  With the worker on, each
+    merge was applied on the tracker's thread."""
+    out = {pkg: _blackout(pkg, async_mapping) for pkg in ("jax", "torch")}
     print("blackout", out)
     for pkg, r in out.items():
         assert r["n_maps_max"] >= 2 and r["merged"], (pkg, r)
         assert r["n_kf"] > r["n_kf_1"], (pkg, r)
         assert r["nm"] > 25 and r["ate"] < 0.25, (pkg, r)
+        assert set(r["applied_on"]) == {threading.main_thread().name}, (pkg, r)
 
 
 @pytest.mark.slow
