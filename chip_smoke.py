@@ -114,7 +114,19 @@ the int8 tensor-core rate of 1979 T/s).
      d. phase 13's scenario with the worker on, in a session of its own
         (the default path's 40 frames, the noise, the replay): the merge
         comes as the worker's "merge" event and is applied on the
-        tracker's thread.
+        tracker's thread;
+ 23. fixed-order sums (ops/segment.py): (a) the last call of each
+     converted site, recorded on its main path (the local BA of phase 6,
+     a BoW vector of phase 7, the pose graph's normal equations and the
+     GBA of phase 9, the local inertial BA of phase 14, the sharded BA of
+     20a), replayed 20 times: the same bytes as the main path's call
+     every time; two replays before them and two after with index_add_ /
+     index_put_ on the card give that order's spread and time beside the
+     fixed order's; (b) the loop-off session again, under
+     torch.use_deterministic_algorithms(True, warn_only=True): camera
+     centres, keyframe poses and landmarks equal to phase 6's bit for bit;
+     (c) that mode's warnings over (b) and a replay of each site, by call
+     site, after a control (torch.histc on the card) that must warn.
 Phase 8 also relocalizes a view of frame 20 with 96 % of its descriptors
 randomized: it fails the first pass's 50-inlier acceptance, so the
 widening re-search runs (one K2 launch per pass).
@@ -122,7 +134,8 @@ Phase 7 also counts the synchronizing calls of its last (warm, fused) frame
 under torch.cuda.set_sync_debug_mode("warn"), by call site.
 Phases 6-19, 20a, 21 and 22 are the main paths: each resets the kernels' launch
 counters just before it and reads them just after; the kernels line sums
-them (20b and 20c run the BA alone, which launches no kernel of K1-K3).
+them (20b and 20c run the BA alone, which launches no kernel of K1-K3;
+23 reruns phase 6 and replays solvers, and is no main path).
 Their frames are rendered by worker processes, one per path, while the
 kernels build (render_scenario), with the seeds and in the order each
 session uses them.  Any
@@ -715,7 +728,11 @@ def _lateral_session(dev, scen, loop_closing):
         raise AssertionError(f"K2 launched {k2} times over {fused} fused frames")
     warm = np.asarray(slam.timings[5:]) * 1e3
     stages = {k: round(v["median_ms"], 3) for k, v in stats["stages"].items()}
-    return slam, world, R_gt, t_gt, dict(
+    m = slam.atlas.active_map
+    state = dict(centres=rows[:, 1:4].copy(), kf_R=m.kf_R[m.kf_valid].copy(),
+                 kf_t=m.kf_t[m.kf_valid].copy(),
+                 landmarks=m.lm_pos[m.lm_valid].copy())
+    return slam, world, R_gt, t_gt, dict(state=state,
         ate=rmse, nm=nm, n_kf=stats["n_kf"], n_lm=stats["n_lm"],
         frame_ms_median_warm=float(np.median(warm)),
         frame_ms=[float(x) for x in np.asarray(slam.timings) * 1e3],
@@ -1433,7 +1450,8 @@ def phase_mono_inertial(dev, scen):
     if not (r["nm"] > 40 and r["ate_scaled"] < 0.35):
         raise AssertionError(f"mono-inertial: nm {r['nm']} scaled ATE "
                              f"{r['ate_scaled']}")
-    print(_inertial_line("mono-inertial", r))
+    print(_inertial_line("mono-inertial", r) + f"; gyro bias error {bg_err!r}"
+          f", init scale {s!r}")
     return dict(r, gyro_bias_err=bg_err)
 
 
@@ -2076,7 +2094,7 @@ def phase_mesh_loop(dev, single):
           f"once at {r['corrected_at'][0]}; revisit centre errors "
           f"{[round(e, 5) for e in r['centre_err']]}; duplicates alive "
           f"{r['dup_alive']:.4f}; max keyframe-centre difference from phase 9 "
-          f"{diff:.3e}; {mesh.n_psum} reductions; {r['wall_s']:.2f} s; "
+          f"{diff!r}; {mesh.n_psum} reductions; {r['wall_s']:.2f} s; "
           f"launches {r['launches']}")
     return r
 
@@ -2254,6 +2272,219 @@ def phase_knobs(dev, scen):
     return out
 
 
+# Phase 23: the scatter-adds of these solvers go through ops/segment.py.
+# Each site's solver records its last call on the main path named here
+# (the arguments cloned before the call, the output after), and phase 23
+# replays it on the same card.  The pose graph's solve takes seconds (the
+# forward-mode Jacobians), so its site is the normal equations of its
+# last iteration.  The keyframe database sums its sparse BoW vectors on
+# the host, so the dense vector (bow_vector_any, which sums on the card)
+# is replayed on the arguments of the database's last words_and_weights
+# call.
+FIXED_SITES = {
+    "local_ba": (f"{PKG}.pipeline.local_mapping", "bundle_adjust", "loop_off"),
+    "bow": (f"{PKG}.bow.database", "words_and_weights", "default",
+            (f"{PKG}.bow.vocabulary", "bow_vector_any")),
+    "pose_graph": (f"{PKG}.solvers.pose_graph", "_normal_equations", "loop"),
+    "gba": (f"{PKG}.pipeline.global_ba", "bundle_adjust", "loop"),
+    "inertial_ba": (f"{PKG}.pipeline.inertial_tracking",
+                    "inertial_bundle_adjust", "mono_inertial"),
+    "sharded_ba": (f"{PKG}.parallel.dist_ba", "distributed_bundle_adjust",
+                   "mesh_loop"),
+}
+# Replays in the fixed order, and with index_add_ before and after them.
+N_FIXED, N_UNORDERED = 20, 2
+
+
+def _each_tensor(x, fn):
+    """x with fn applied to every tensor in it (through tuples, lists,
+    dicts and the port's Preintegrated)."""
+    import torch
+    from orb_slam3_study_kr_tpu_torch.imu.preintegration import Preintegrated
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, Preintegrated):
+        return x.map(fn)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_each_tensor(a, fn) for a in x)
+    if isinstance(x, dict):
+        return {k: _each_tensor(v, fn) for k, v in x.items()}
+    return x
+
+
+def _tensors(x):
+    out = []
+    _each_tensor(x, out.append)
+    return out
+
+
+def _same_bits(a, b):
+    """Every tensor of a has the bytes of b's (NaN payloads included)."""
+    import torch
+    ta, tb = _tensors(a), _tensors(b)
+    return len(ta) == len(tb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.detach().reshape(-1).contiguous().view(torch.uint8),
+            y.detach().reshape(-1).contiguous().view(torch.uint8))
+        for x, y in zip(ta, tb))
+
+
+def _max_diff(a, b):
+    """Largest |a - b| / (1 + |b|) over the floating tensors (absolute for
+    poses and unit vectors, relative for costs and chi2; NaN at the same
+    place in both counts as equal, elsewhere as inf)."""
+    import torch
+    d = 0.0
+    for x, y in zip(_tensors(a), _tensors(b)):
+        if x.is_floating_point():
+            x, y = x.double(), y.double()
+            e = torch.where(torch.isnan(x) & torch.isnan(y),
+                            torch.zeros_like(x), (x - y).abs() / (1 + y.abs()))
+            d = max(d, float(torch.nan_to_num(e, nan=float("inf")).max())
+                    if e.numel() else 0.0)
+    return d
+
+
+class _Recorder:
+    """Records each FIXED_SITES solver's last call while ``recording``."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def recording(self, *sites):
+        import contextlib
+        import importlib
+
+        @contextlib.contextmanager
+        def patched():
+            saved = []
+            for site in sites:
+                module, attr, _, *replay = FIXED_SITES[site]
+                mod = importlib.import_module(module)
+                orig = getattr(mod, attr)
+                fn = (getattr(importlib.import_module(replay[0][0]),
+                              replay[0][1]) if replay else orig)
+
+                def rec(*a, _site=site, _orig=orig, _fn=fn, **kw):
+                    args = _each_tensor((a, kw), lambda t: t.clone())
+                    out = _orig(*a, **kw)
+                    self.calls[_site] = dict(fn=_fn, args=args, out=(
+                        _each_tensor(out, lambda t: t.clone())
+                        if _fn is _orig else None))
+                    return out
+
+                setattr(mod, attr, rec)
+                saved.append((mod, attr, orig))
+            try:
+                yield
+            finally:
+                for mod, attr, orig in saved:
+                    setattr(mod, attr, orig)
+
+        return patched()
+
+
+def _replay(call, n):
+    """n calls of a recorded site on its recorded arguments: (outputs, ms
+    per call, host clock over synchronized calls)."""
+    import torch
+    fn, (a, kw) = call["fn"], call["args"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [fn(*a, **kw) for _ in range(n)]
+    torch.cuda.synchronize()
+    return outs, (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_fixed_order(dev, recorder, loop_off, scen):
+    """23: (a) each recorded site replayed N_FIXED times: the same bytes as
+    its main-path call every time; N_UNORDERED replays before them and as
+    many after with index_add_ / index_put_ on the card (the order before
+    ops/segment.py) give that order's spread and time.  (b) the loop-off session again, under
+    torch.use_deterministic_algorithms(True, warn_only=True): camera
+    centres, keyframe poses and landmarks equal to phase 6's bit for bit.
+    (c) the warnings of that mode over (b) and one more replay of each
+    site, by call site."""
+    import warnings
+    from unittest import mock
+    import numpy as np
+    import torch
+    from orb_slam3_study_kr_tpu_torch.ops import segment
+    sites = {}
+    for site, (_, _, phase, *_) in FIXED_SITES.items():
+        call = recorder.calls.get(site)
+        if call is None:
+            raise AssertionError(f"23: {site} made no call in phase {phase}")
+        unordered = mock.patch.object(segment, "_fixed_order", lambda t: False)
+        with unordered:
+            before, ms_b = _replay(call, N_UNORDERED)
+        outs, ms = _replay(call, N_FIXED)
+        with unordered:
+            after, ms_a = _replay(call, N_UNORDERED)
+        unordered, ms_u = before + after, (ms_b + ms_a) / 2
+        if call["out"] is None:     # a replayed function of the recorded call
+            call["out"] = outs[0]
+        bad = [i for i, o in enumerate(outs) if not _same_bits(o, call["out"])]
+        if bad:
+            raise AssertionError(
+                f"23: {site} replays {bad} differ from its {phase} call by "
+                f"{max(_max_diff(outs[i], call['out']) for i in bad):.3e} "
+                f"(relative)")
+        sites[site] = dict(
+            phase=phase, identical=N_FIXED, ms=ms, index_add_ms=ms_u,
+            index_add_spread=max(_max_diff(o, unordered[0])
+                                 for o in unordered),
+            index_add_from_fixed=max(_max_diff(o, call["out"])
+                                     for o in unordered))
+        print(f"phase 23a fixed order, {site} (from {phase}): {N_FIXED} "
+              f"replays identical to the main path's call (bow: to the "
+              f"first replay), {ms:.3f} ms per "
+              f"call; index_add_ {ms_u:.3f} ms, its {2 * N_UNORDERED} replays "
+              f"spread {sites[site]['index_add_spread']:.3e}, "
+              f"{sites[site]['index_add_from_fixed']:.3e} from the fixed "
+              f"order (|a - b| / (1 + |b|) over the outputs)")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            # The scan's control: histc has no deterministic CUDA version,
+            # so the mode must warn here.
+            torch.histc(torch.zeros(8, device=dev), bins=4)
+            for call in recorder.calls.values():
+                _replay(call, 1)
+            *_, again = _lateral_session(dev, scen, loop_closing=False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    for k, a in loop_off["state"].items():
+        b = again["state"][k]
+        if a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(
+                f"23b: the loop-off rerun's {k} differ from phase 6's "
+                f"(shapes {a.shape} / {b.shape}, max "
+                f"{np.nanmax(np.abs(a - b)) if a.shape == b.shape else None})")
+    scan, control = {}, 0
+    for w in caught:
+        if os.path.abspath(w.filename) == os.path.abspath(__file__):
+            control += "histc" in str(w.message)
+            continue
+        key = f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+        what = str(w.message).split(".")[0][:100]
+        scan.setdefault(key, {}).setdefault(what, 0)
+        scan[key][what] += 1
+    if control < 1:
+        raise AssertionError("23c: deterministic mode raised no warning at "
+                             "torch.histc: the scan sees nothing")
+    n_state = {k: v.shape[0] for k, v in again["state"].items()}
+    print(f"phase 23b fixed order: the loop-off session rerun under "
+          f"use_deterministic_algorithms(warn_only=True) equals phase 6 bit "
+          f"for bit ({json.dumps(n_state)} rows); ATE {again['ate']:.5f}")
+    print(f"phase 23c deterministic-mode warnings by call site: "
+          f"{sum(sum(v.values()) for v in scan.values())} at {len(scan)} "
+          f"sites {json.dumps(scan)} (the control, torch.histc on the "
+          f"card, warned {control} time(s))")
+    return dict(sites=sites, scan=scan, rerun_ate=again["ate"])
+
+
 def main(argv=None):
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2304,19 +2535,25 @@ def main(argv=None):
                     scen["fisheye_mono"]["frames"][0][0])
     out["k2"] = run("k2", phase_k2, dev, img_a, img_b)
     out["k3"] = run("k3", phase_k3, dev, img_a, img_b)
-    out["loop_off"] = run("loop_off", phase_loop_off, dev, scen["loop_off"])
-    slam, world, R_gt, t_gt, out["default"] = run("default", phase_default, dev,
-                                                  scen["default"])
+    recorder = _Recorder()
+    with recorder.recording("local_ba"):
+        loop_off = run("loop_off", phase_loop_off, dev, scen["loop_off"])
+    with recorder.recording("bow"):
+        slam, world, R_gt, t_gt, out["default"] = run(
+            "default", phase_default, dev, scen["default"])
+    del out["default"]["state"]
     out["reloc"] = run("reloc", phase_reloc, dev, slam, world, R_gt, t_gt)
     out["atlas"] = run("atlas", phase_atlas, dev, slam, scen["atlas"])
     del slam
-    out["loop"] = run("loop", phase_loop_correction, dev)
+    with recorder.recording("pose_graph", "gba"):
+        out["loop"] = run("loop", phase_loop_correction, dev)
     out["stereo"] = run("stereo", phase_stereo, dev, scen["stereo"])
     out["rgbd"] = run("rgbd", phase_rgbd, dev, scen["rgbd"])
     out["async"] = run("async", phase_async, dev, scen["async"],
                        out["default"]["frame_ms_median_warm"])
-    out["mono_inertial"] = run("mono_inertial", phase_mono_inertial, dev,
-                               scen["mono_inertial"])
+    with recorder.recording("inertial_ba"):
+        out["mono_inertial"] = run("mono_inertial", phase_mono_inertial, dev,
+                                   scen["mono_inertial"])
     out["rgbd_inertial"] = run("rgbd_inertial", phase_rgbd_inertial, dev,
                                scen["rgbd_inertial"])
     out["fisheye_mono"] = run("fisheye_mono", phase_fisheye_mono, dev,
@@ -2330,7 +2567,8 @@ def main(argv=None):
                                scen["driver_si"], tmp)
         out["driver_mono"] = run("driver_mono", phase_driver_mono, dev,
                                  scen["driver_mono"], tmp)
-    out["mesh_loop"] = run("mesh_loop", phase_mesh_loop, dev, out["loop"])
+    with recorder.recording("sharded_ba"):
+        out["mesh_loop"] = run("mesh_loop", phase_mesh_loop, dev, out["loop"])
     out["ba_scaling"] = run("ba_scaling", phase_ba_scaling, dev)
     out["workers"] = run("workers", phase_workers, dev)
     out["knobs"] = run("knobs", phase_knobs, dev, scen["loop_off"])
@@ -2342,6 +2580,9 @@ def main(argv=None):
                                 scen["async_inertial"])
     out["async_atlas"] = run("async_atlas", phase_async_atlas, dev,
                              scen["default"], scen["atlas"])
+    out["fixed_order"] = run("fixed_order", phase_fixed_order, dev, recorder,
+                             loop_off, scen["loop_off"])
+    out["loop_off"] = {k: v for k, v in loop_off.items() if k != "state"}
     paths = ("loop_off", "default", "reloc", "atlas", "loop", "stereo", "rgbd",
              "async", "mono_inertial", "rgbd_inertial", "fisheye_mono",
              "fisheye_stereo", "fisheye_inertial", "driver_si", "driver_mono",

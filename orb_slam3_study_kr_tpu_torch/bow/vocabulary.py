@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from orb_slam3_study_kr_tpu_torch.ops.segment import segment_sum
 from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
 
@@ -196,8 +197,7 @@ def words_and_weights(voc, desc, valid):
 
 
 def _dense(n_words, words, w):
-    v = torch.zeros(n_words, dtype=torch.float32, device=w.device)
-    v.index_add_(0, words, w)
+    v = segment_sum(n_words, words, w.to(torch.float32))
     return v / torch.clamp(torch.sum(torch.abs(v)), min=1e-9)
 
 

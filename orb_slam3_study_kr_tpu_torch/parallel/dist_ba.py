@@ -41,10 +41,10 @@ import torch
 import torch.distributed as dist
 
 from orb_slam3_study_kr_tpu_torch.lie.se3 import exp_se3, se3_compose
+from orb_slam3_study_kr_tpu_torch.ops.segment import segment_plan, segment_sum
 from orb_slam3_study_kr_tpu_torch.solvers import robust
 from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import inv_nan, solve_nan
-from orb_slam3_study_kr_tpu_torch.solvers.local_ba import (_diag, _schur_pcg,
-                                                           _seg_sum)
+from orb_slam3_study_kr_tpu_torch.solvers.local_ba import _diag, _schur_pcg
 from orb_slam3_study_kr_tpu_torch.solvers.reproj import residual_and_jacobians
 from orb_slam3_study_kr_tpu_torch.utils import resolve_device
 
@@ -204,6 +204,12 @@ def distributed_bundle_adjust(
             ur >= 0, torch.tensor(robust.CHI2_STEREO, dtype=dt, device=dev),
             mono)
         s["delta"] = torch.sqrt(s["gate"])
+        # The segment sums' orders, fixed once per solve (None on the CPU).
+        Mb = s["X"].shape[0]
+        s["plans"] = (segment_plan(K, s["op"]), segment_plan(Mb, s["ol"]))
+        if assembly != "pcg":
+            s["chunks"] = _chunks(K, s["op"], s["ol"], Mb, Mb if assembly
+                                  == "dense" else CHUNK)
 
     def compute(s, R, t, X_blk):
         R, t = R.to(s["dev"]), t.to(s["dev"])
@@ -231,14 +237,16 @@ def distributed_bundle_adjust(
         for s, Xb in zip(shards, Xs):
             r, J_pose, J_point, w, _, _ = compute(s, R_all, t_all, Xb)
             op, ol, Mb = s["op"], s["ol"], Xb.shape[0]
+            pp, lp = s["plans"]
             Jp = J_pose * free.to(s["dev"])[op][:, None, None]
-            Hpp_p.append(_seg_sum(K, op, torch.einsum("nia,n,nib->nab",
-                                                      Jp, w, Jp)))
-            bp_p.append(_seg_sum(K, op, torch.einsum("nia,n,ni->na",
-                                                     Jp, w, r)))
-            Hll = _seg_sum(Mb, ol, torch.einsum("nia,n,nib->nab", J_point, w,
-                                                J_point))
-            bl = _seg_sum(Mb, ol, torch.einsum("nia,n,ni->na", J_point, w, r))
+            Hpp_p.append(segment_sum(K, op, torch.einsum("nia,n,nib->nab",
+                                                         Jp, w, Jp), pp))
+            bp_p.append(segment_sum(K, op, torch.einsum("nia,n,ni->na",
+                                                        Jp, w, r), pp))
+            Hll = segment_sum(Mb, ol, torch.einsum("nia,n,nib->nab", J_point,
+                                                   w, J_point), lp)
+            bl = segment_sum(Mb, ol, torch.einsum("nia,n,ni->na", J_point, w,
+                                                  r), lp)
             E = torch.einsum("nia,n,nib->nab", Jp, w, J_point)   # (O, 6, 3)
             lam_s = lam.to(s["dev"])
             e3 = eye3.to(s["dev"])
@@ -256,13 +264,11 @@ def distributed_bundle_adjust(
                             [b for _, b, _ in loc], [e for _, _, e in loc],
                             [s["op"] for s in shards],
                             [s["ol"] for s in shards], fixed, n_cg,
-                            psum_fn=mesh.psum)
+                            [s["plans"] for s in shards], psum_fn=mesh.psum)
         else:
             S_p, rhs_p = [], []
             for s, (Hll_inv, bl, E) in zip(shards, loc):
-                S_i, rhs_i = _reduced_part(
-                    K, s["op"], s["ol"], Hll_inv, bl, E,
-                    Hll_inv.shape[0] if assembly == "dense" else CHUNK)
+                S_i, rhs_i = _reduced_part(K, s["chunks"], Hll_inv, bl, E)
                 S_p.append(S_i)
                 rhs_p.append(rhs_i)
             S = mesh.psum(S_p) + _blockdiag6(Hpp_d, K)
@@ -276,8 +282,9 @@ def distributed_bundle_adjust(
         X_new = []
         for s, Xb, (Hll_inv, bl, E) in zip(shards, Xs, loc):
             dps = dp.to(s["dev"])
-            Wtdp = _seg_sum(Xb.shape[0], s["ol"],
-                            torch.einsum("nab,na->nb", E, dps[s["op"]]))
+            Wtdp = segment_sum(Xb.shape[0], s["ol"],
+                               torch.einsum("nab,na->nb", E, dps[s["op"]]),
+                               s["plans"][1])
             dl = -torch.einsum("mab,mb->ma", Hll_inv, bl + Wtdp)
             X_new.append(Xb + dl * s["lmm"][:, None])
         cost_new = mesh.psum([compute(s, R_new, t_new, Xb)[5]
@@ -295,20 +302,31 @@ def distributed_bundle_adjust(
             torch.cat([c.to(dev0) for c in chi2]))
 
 
-def _reduced_part(K, op, ol, Hll_inv, bl, E, chunk):
-    """One shard's part of the reduced camera system: -sum W Hll^-1 W^T
-    and sum W Hll^-1 bl over its landmarks, ``chunk`` landmarks at a time
-    (the (K, chunk, 6, 3) cross block).  An observation outside the chunk
-    adds a zero block (the reference's scatter with mode="drop")."""
-    Mb = Hll_inv.shape[0]
-    S = torch.zeros((6 * K, 6 * K), dtype=E.dtype, device=E.device)
-    rhs = torch.zeros(6 * K, dtype=E.dtype, device=E.device)
+def _chunks(K, op, ol, Mb, chunk):
+    """Per landmark chunk of one shard: (c0, c, cell, inside, plan), the
+    cross block's cell of each observation (clamped into the chunk),
+    whether it lies in the chunk, and the cells' segment plan.  Built once
+    per solve."""
+    out = []
     for c0 in range(0, Mb, chunk):
         c = min(chunk, Mb - c0)
         local = ol - c0
-        inside = (local >= 0) & (local < c)
-        W = _seg_sum(K * c, op * c + torch.clamp(local, 0, c - 1),
-                     E * inside[:, None, None].to(E.dtype)).reshape(K, c, 6, 3)
+        cell = op * c + torch.clamp(local, 0, c - 1)
+        out.append((c0, c, cell, (local >= 0) & (local < c),
+                    segment_plan(K * c, cell)))
+    return out
+
+
+def _reduced_part(K, chunks, Hll_inv, bl, E):
+    """One shard's part of the reduced camera system: -sum W Hll^-1 W^T
+    and sum W Hll^-1 bl over its landmarks, one chunk of ``_chunks`` at a
+    time (the (K, c, 6, 3) cross block).  An observation outside the chunk
+    adds a zero block (the reference's scatter with mode="drop")."""
+    S = torch.zeros((6 * K, 6 * K), dtype=E.dtype, device=E.device)
+    rhs = torch.zeros(6 * K, dtype=E.dtype, device=E.device)
+    for c0, c, cell, inside, plan in chunks:
+        W = segment_sum(K * c, cell, E * inside[:, None, None].to(E.dtype),
+                        plan).reshape(K, c, 6, 3)
         Wi = torch.einsum("kmab,mbc->kmac", W, Hll_inv[c0:c0 + c])
         S = S - torch.einsum("kmac,lmbc->kalb", Wi, W).reshape(6 * K, 6 * K)
         rhs = rhs + torch.einsum("kmab,mb->ka", Wi,

@@ -13,10 +13,11 @@ Each keyframe is a 15-dof state [phi, dp, dv, dbg, dba] in one dense
 complement through the dense (K, M, 6, 3) cross block, the correction
 landing on the pose dims [0:6] of each state.  Visual Jacobians are closed
 form; the 9-D preintegration edges get their 24-dim pair Jacobians from
-forward-mode autodiff.  Blocks are scattered with ``index_add_`` /
-``index_put_(accumulate=True)``: on CUDA their order of additions is not
-fixed, so results on the card differ from the CPU's by float32 rounding.
-LM damping with accept/reject stays on the device.
+forward-mode autodiff.  Blocks are scattered through ``ops/segment.py``:
+``index_add_`` / ``index_put_(accumulate=True)`` in input order on the
+CPU, a fixed order on the card (its plans built once per solve), so a run
+on the card gives the same bits every time; they differ from the CPU's
+by float32 rounding.  LM damping with accept/reject stays on the device.
 """
 
 import torch
@@ -24,6 +25,8 @@ import torch
 from orb_slam3_study_kr_tpu_torch.imu.preintegration import (
     Preintegrated, gravity, inertial_residual)
 from orb_slam3_study_kr_tpu_torch.lie.so3 import exp_so3, hat, normalize_rotation
+from orb_slam3_study_kr_tpu_torch.ops.segment import (put_add_, put_plan,
+                                                      segment_plan, segment_sum)
 from orb_slam3_study_kr_tpu_torch.solvers import robust
 from orb_slam3_study_kr_tpu_torch.solvers.inertial import (
     batched_jacobian, edge_whitening)
@@ -42,11 +45,11 @@ def _huber_rho(chi2, d2, d):
     return torch.where(chi2 <= d2, chi2, 2 * d * rr - d2)
 
 
-def _scatter2(H, rows, cols, vals):
-    """H[rows, cols] += vals, repeated (row, col) pairs accumulating."""
+def _pairs(rows, cols):
+    """The flat (row, col) index pair of broadcast rows and cols: H[rows,
+    cols] += vals accumulates repeated pairs through put_add_."""
     rows, cols = torch.broadcast_tensors(rows, cols)
-    H.index_put_((rows.reshape(-1), cols.reshape(-1)), vals.reshape(-1),
-                 accumulate=True)
+    return rows.reshape(-1), cols.reshape(-1)
 
 
 def inertial_bundle_adjust(
@@ -119,6 +122,23 @@ def inertial_bundle_adjust(
                     torch.full((3,), float(prior_acc), dtype=dtype, device=dev)])
     pcols = bias_src * 15 + ar15[9:15]
     eye3 = torch.eye(3, dtype=dtype, device=dev)
+    # Every scatter's index with the segment plan of its sums (None on the
+    # CPU), fixed once per solve.
+    HS = (n_dim, n_dim)
+    edge_pairs = _pairs(all_edge_cols[:, :, None], all_edge_cols[:, None, :])
+    rw_pairs = _pairs(rw_cols[:, :, None], rw_cols[:, None, :])
+    pose_pairs = _pairs(pose_dims[:, None], pose_dims[None, :])
+    plan = dict(
+        pose=segment_plan(K, obs_pose), lm=segment_plan(M, obs_lm),
+        W=put_plan((K, M), (obs_pose, obs_lm)),
+        edge_H=put_plan(HS, edge_pairs),
+        edge_b=segment_plan(n_dim, all_edge_cols.reshape(-1)),
+        rw_H=None if shared_bias else put_plan(HS, rw_pairs),
+        rw_b=None if shared_bias else segment_plan(n_dim, rw_cols.reshape(-1)),
+        prior_H=put_plan(HS, (pcols, pcols)),
+        prior_b=segment_plan(n_dim, pcols),
+        pose_H=put_plan(HS, pose_pairs),
+        pose_b=segment_plan(n_dim, pose_dims))
 
     def vis_terms(R_all, p_all, X_all):
         """Residuals and closed-form Jacobians of the visual edges w.r.t.
@@ -194,14 +214,14 @@ def inertial_bundle_adjust(
         Jp6 = J_pose6 * free[obs_pose][:, None, None]
         Hd = torch.zeros((n_dim, n_dim), dtype=dtype, device=dev)
         bvec = torch.zeros((n_dim,), dtype=dtype, device=dev)
-        Hpp6 = torch.zeros((K, 6, 6), dtype=dtype, device=dev).index_add_(
-            0, obs_pose, torch.einsum("nia,n,nib->nab", Jp6, w, Jp6))
-        bp6 = torch.zeros((K, 6), dtype=dtype, device=dev).index_add_(
-            0, obs_pose, torch.einsum("nia,n,ni->na", Jp6, w, r_v))
-        Hll = torch.zeros((M, 3, 3), dtype=dtype, device=dev).index_add_(
-            0, obs_lm, torch.einsum("nia,n,nib->nab", J_X, w, J_X))
-        bl = torch.zeros((M, 3), dtype=dtype, device=dev).index_add_(
-            0, obs_lm, torch.einsum("nia,n,ni->na", J_X, w, r_v))
+        Hpp6 = segment_sum(K, obs_pose, torch.einsum(
+            "nia,n,nib->nab", Jp6, w, Jp6), plan["pose"])
+        bp6 = segment_sum(K, obs_pose, torch.einsum(
+            "nia,n,ni->na", Jp6, w, r_v), plan["pose"])
+        Hll = segment_sum(M, obs_lm, torch.einsum(
+            "nia,n,nib->nab", J_X, w, J_X), plan["lm"])
+        bl = segment_sum(M, obs_lm, torch.einsum(
+            "nia,n,ni->na", J_X, w, r_v), plan["lm"])
         Eob = torch.einsum("nia,n,nib->nab", Jp6, w, J_X)   # (O, 6, 3)
 
         # Inertial edges.
@@ -210,41 +230,42 @@ def inertial_bundle_adjust(
         J_i = batched_jacobian(lambda dx: edge_res(dx, *args), z24)  # (E,9,24)
         chi2_i = torch.sum(r_i * r_i, -1)
         w_i = edge_mask * robust.huber_weight(chi2_i, d_in)
-        _scatter2(Hd, all_edge_cols[:, :, None], all_edge_cols[:, None, :],
-                  torch.einsum("eia,e,eib->eab", J_i, w_i, J_i))
-        bvec.index_put_((all_edge_cols.reshape(-1),),
-                        torch.einsum("eia,e,ei->ea", J_i, w_i, r_i).reshape(-1),
-                        accumulate=True)
+        put_add_(Hd, edge_pairs,
+                 torch.einsum("eia,e,eib->eab", J_i, w_i, J_i).reshape(-1),
+                 plan["edge_H"])
+        put_add_(bvec, (all_edge_cols.reshape(-1),),
+                 torch.einsum("eia,e,ei->ea", J_i, w_i, r_i).reshape(-1),
+                 plan["edge_b"])
         if not shared_bias:
             # Bias random-walk edges: linear, J = [-W_rw | W_rw].
             r_rw = (b_all[ej] - b_all[ei]) * w_rw
             Wd = w_rw * edge_mask[:, None] ** 0.5
             Jrw = torch.cat([-torch.diag_embed(Wd), torch.diag_embed(Wd)], -1)
-            _scatter2(Hd, rw_cols[:, :, None], rw_cols[:, None, :],
-                      torch.einsum("eia,eib->eab", Jrw, Jrw))
-            bvec.index_put_((rw_cols.reshape(-1),), torch.einsum(
+            put_add_(Hd, rw_pairs, torch.einsum(
+                "eia,eib->eab", Jrw, Jrw).reshape(-1), plan["rw_H"])
+            put_add_(bvec, (rw_cols.reshape(-1),), torch.einsum(
                 "eia,ei->ea", Jrw, r_rw * edge_mask[:, None] ** 0.5).reshape(-1),
-                accumulate=True)
+                plan["rw_b"])
 
         # Bias priors.
-        Hd.index_put_((pcols, pcols), pr, accumulate=True)
-        bvec.index_put_((pcols,), pr * b_all[bias_src], accumulate=True)
+        put_add_(Hd, (pcols, pcols), pr, plan["prior_H"])
+        put_add_(bvec, (pcols,), pr * b_all[bias_src], plan["prior_b"])
 
         # Assemble and damp.
         Hll_d = Hll + lam * (eye3[None] + Hll * eye3[None])
         Hll_inv = inv_nan(Hll_d) * lm_mask[:, None, None]
         Wc = torch.zeros((K, M, 6, 3), dtype=dtype, device=dev)
-        Wc.index_put_((obs_pose, obs_lm), Eob, accumulate=True)
+        put_add_(Wc, (obs_pose, obs_lm), Eob, plan["W"])
         Wi = torch.einsum("kmab,mbc->kmac", Wc, Hll_inv)
         corr = torch.einsum("kmac,lmbc->kalb", Wi, Wc).reshape(6 * K, 6 * K)
         rhs_corr = torch.einsum("kmab,mb->ka", Wi, bl).reshape(-1)
         blk = torch.zeros((K, 6, K, 6), dtype=dtype, device=dev)
         ar = torch.arange(K, device=dev)
         blk[ar, :, ar, :] = Hpp6
-        _scatter2(Hd, pose_dims[:, None], pose_dims[None, :],
-                  blk.reshape(6 * K, 6 * K) - corr)
-        bvec.index_put_((pose_dims,), bp6.reshape(-1) - rhs_corr,
-                        accumulate=True)
+        put_add_(Hd, pose_pairs, (blk.reshape(6 * K, 6 * K) - corr).reshape(-1),
+                 plan["pose_H"])
+        put_add_(bvec, (pose_dims,), bp6.reshape(-1) - rhs_corr,
+                 plan["pose_b"])
         Hd = Hd + torch.diag(lam * (1.0 + torch.diagonal(Hd)) + 1e-8)
 
         # Freeze fixed dims: identity rows and columns.

@@ -5,8 +5,9 @@ Counterpart of ``orb_slam3_study_kr_tpu/solvers/local_ba.py``:
 
 - observations are flat index arrays (pose_idx, landmark_idx, uv, level,
   mask) — the bipartite graph as COO;
-- per-pose 6x6 and per-landmark 3x3 blocks come from index_add segment
-  sums;
+- per-pose 6x6 and per-landmark 3x3 blocks come from segment sums
+  (``ops/segment.py``: ``index_add_`` on the CPU, a fixed order on the
+  card, its plans built once per solve);
 - landmark elimination inverts (M, 3, 3) blocks in batch;
 - ``assembly="dense"`` (the init BA and local BA) builds the reduced camera
   system S = Hpp - W Hll^-1 W^T from the dense (K, M, 6, 3) cross block and
@@ -21,6 +22,7 @@ The caller culls observations whose final chi2 exceeds the 5.991 gate.
 import torch
 
 from orb_slam3_study_kr_tpu_torch.lie.se3 import exp_se3, se3_compose
+from orb_slam3_study_kr_tpu_torch.ops.segment import segment_plan, segment_sum
 from orb_slam3_study_kr_tpu_torch.solvers import robust
 from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import inv_nan, solve_nan
 from orb_slam3_study_kr_tpu_torch.solvers.reproj import residual_and_jacobians
@@ -31,17 +33,12 @@ def _diag(Hb, n):
     return eye * Hb * eye
 
 
-def _seg_sum(n, idx, vals):
-    return torch.zeros((n, *vals.shape[1:]), dtype=vals.dtype,
-                       device=vals.device).index_add_(0, idx, vals)
-
-
 def _only(parts):
     return parts[0]
 
 
 def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
-               psum_fn=None):
+               plans, psum_fn=None):
     """Matrix-free solve of the reduced camera system S dp = rhs.
 
     S v = Hpp_d v - W Hll_inv W^T v is two segment-sum sweeps over the
@@ -56,7 +53,11 @@ def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
     pose-space segment sums and each matvec's u2 sweep are reduced; the
     landmark-space sweep stays on its shard, which holds each of its
     landmarks' every observation.  The pose-space CG itself runs once,
-    on the reduced values."""
+    on the reduced values.
+
+    ``plans``: one (pose plan, landmark plan) per shard, the segment plans
+    of obs_pose over the K poses and of obs_lm over the shard's landmarks
+    (``ops/segment.py``), which the caller builds once per solve."""
     K = Hpp_d.shape[0]
     dt = Hpp_d.dtype
     if psum_fn is None:
@@ -67,27 +68,31 @@ def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
     freeK = (1.0 - fixed)[:, None]
     Ys = [torch.einsum("nab,nbc->nac", Es, Hi[ol])        # (O, 6, 3)
           for Hi, _, Es, _, ol in shards]
-    rhs = -(bp - psum_fn([_seg_sum(K, op, torch.einsum("nab,nb->na", Y,
-                                                       bls[ol]))
-                          for Y, (_, bls, _, op, ol) in zip(Ys, shards)]))
+    rhs = -(bp - psum_fn([segment_sum(K, op, torch.einsum("nab,nb->na", Y,
+                                                          bls[ol]), pp)
+                          for Y, (_, bls, _, op, ol), (pp, _)
+                          in zip(Ys, shards, plans)]))
     rhs = rhs * freeK
-    Dk = Hpp_d - psum_fn([_seg_sum(K, op, torch.einsum("nab,ncb->nac", Y, Es))
-                          for Y, (_, _, Es, op, _) in zip(Ys, shards)])
+    Dk = Hpp_d - psum_fn([segment_sum(K, op, torch.einsum("nab,ncb->nac", Y,
+                                                          Es), pp)
+                          for Y, (_, _, Es, op, _), (pp, _)
+                          in zip(Ys, shards, plans)])
     eye6 = torch.eye(6, dtype=dt, device=Hpp_d.device)
     Dk = Dk * freeK[..., None] + eye6[None] * fixed[:, None, None]
     Minv = inv_nan(Dk)
 
-    def u2_part(v, Hi, Es, op, ol):
+    def u2_part(v, Hi, Es, op, ol, pp, lp):
         v = v.to(Es.device)
-        tv = _seg_sum(Hi.shape[0], ol, torch.einsum("nab,na->nb", Es, v[op]))
+        tv = segment_sum(Hi.shape[0], ol,
+                         torch.einsum("nab,na->nb", Es, v[op]), lp)
         z = torch.einsum("mab,mb->ma", Hi, tv)
-        return _seg_sum(K, op, torch.einsum("nab,nb->na", Es, z[ol]))
+        return segment_sum(K, op, torch.einsum("nab,nb->na", Es, z[ol]), pp)
 
     def matvec(v):
         v = v * freeK
         u = torch.einsum("kab,kb->ka", Hpp_d, v)
-        u2 = psum_fn([u2_part(v, Hi, Es, op, ol)
-                      for Hi, _, Es, op, ol in shards])
+        u2 = psum_fn([u2_part(v, Hi, Es, op, ol, pp, lp)
+                      for (Hi, _, Es, op, ol), (pp, lp) in zip(shards, plans)])
         return (u - u2) * freeK
 
     x = torch.zeros((K, 6), dtype=dt, device=Hpp_d.device)
@@ -141,6 +146,10 @@ def bundle_adjust(project_fn, project_jac_fn,
     eye3 = torch.eye(3, dtype=dt, device=dev)
     eye6 = torch.eye(6, dtype=dt, device=dev)
     cell = obs_pose * M + obs_lm
+    # The segment sums' orders, fixed once per solve (None on the CPU).
+    pose_plan = segment_plan(K, obs_pose)
+    lm_plan = segment_plan(M, obs_lm)
+    cell_plan = segment_plan(K * M, cell) if assembly == "dense" else None
 
     def huber_rho(chi2):
         r = torch.sqrt(torch.clamp(chi2, min=1e-12))
@@ -169,11 +178,14 @@ def bundle_adjust(project_fn, project_jac_fn,
     for _ in range(n_iters):
         r, J_pose, J_point, w, chi2, _ = compute(R_all, t_all, X_all)
         Jp = J_pose * free_pose[:, None, None]
-        Hpp = _seg_sum(K, obs_pose, torch.einsum("nia,n,nib->nab", Jp, w, Jp))
-        bp = _seg_sum(K, obs_pose, torch.einsum("nia,n,ni->na", Jp, w, r))
-        Hll = _seg_sum(M, obs_lm, torch.einsum("nia,n,nib->nab", J_point, w,
-                                              J_point))
-        bl = _seg_sum(M, obs_lm, torch.einsum("nia,n,ni->na", J_point, w, r))
+        Hpp = segment_sum(K, obs_pose, torch.einsum("nia,n,nib->nab", Jp, w,
+                                                    Jp), pose_plan)
+        bp = segment_sum(K, obs_pose, torch.einsum("nia,n,ni->na", Jp, w, r),
+                         pose_plan)
+        Hll = segment_sum(M, obs_lm, torch.einsum("nia,n,nib->nab", J_point,
+                                                  w, J_point), lm_plan)
+        bl = segment_sum(M, obs_lm, torch.einsum("nia,n,ni->na", J_point, w,
+                                                 r), lm_plan)
         E = torch.einsum("nia,n,nib->nab", Jp, w, J_point)   # (O, 6, 3)
 
         Hll_d = Hll + lam * (eye3[None] + _diag(Hll, 3))
@@ -182,7 +194,7 @@ def bundle_adjust(project_fn, project_jac_fn,
 
         if assembly == "dense":
             # Dense cross block W (K, M, 6, 3) and the reduced camera system.
-            W = _seg_sum(K * M, cell, E).reshape(K, M, 6, 3)
+            W = segment_sum(K * M, cell, E, cell_plan).reshape(K, M, 6, 3)
             Wi = torch.einsum("kmab,mbc->kmac", W, Hll_inv)
             S = -torch.einsum("kmac,lmbc->kalb", Wi, W).reshape(6 * K, 6 * K)
             S = S + torch.block_diag(*Hpp_d)
@@ -191,9 +203,10 @@ def bundle_adjust(project_fn, project_jac_fn,
             dp = solve_nan(S, rhs).reshape(K, 6)
         else:
             dp = _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm,
-                            fixed, n_cg)
+                            fixed, n_cg, [(pose_plan, lm_plan)])
 
-        Wtdp = _seg_sum(M, obs_lm, torch.einsum("nab,na->nb", E, dp[obs_pose]))
+        Wtdp = segment_sum(M, obs_lm, torch.einsum("nab,na->nb", E,
+                                                   dp[obs_pose]), lm_plan)
         dl = -torch.einsum("mab,mb->ma", Hll_inv, bl + Wtdp)
 
         dR, dtr = exp_se3(dp)

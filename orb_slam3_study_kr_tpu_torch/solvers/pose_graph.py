@@ -8,13 +8,16 @@ log_sim3(S_meas^-1 . S_i . S_j^-1).  Per-edge 7x2D Jacobians come from
 forward-mode autodiff of the two touched tangents (the reference's
 jax.jacfwd under vmap over edges; here ``forward_jacobian``, 2D jvp passes
 over all edges at once) and scatter-add into the dense (DK, DK) normal
-equations.  The accept/reject of each damped step stays on the device.
+equations (``ops/segment.py``: in input order on the CPU, in a fixed
+order on the card, its plans built once per solve).  The accept/reject of
+each damped step stays on the device.
 """
 
 import torch
 
 from orb_slam3_study_kr_tpu_torch.lie.sim3 import (exp_sim3, log_sim3,
                                                    sim3_compose, sim3_inverse)
+from orb_slam3_study_kr_tpu_torch.ops.segment import segment_plan, segment_sum
 from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import solve_nan
 
 
@@ -60,12 +63,29 @@ def relative_sim3(Ri, ti, si, Rj, tj, sj):
     return sim3_compose(Ri, ti, si, *sim3_inverse(Rj, tj, sj))
 
 
-def _scatter_blocks(K, D, rows, cols, blocks):
-    """Sum (E, D, D) blocks into a (K*D, K*D) matrix at block (row, col);
-    repeated (row, col) pairs accumulate."""
-    H = torch.zeros((K * K, D, D), dtype=blocks.dtype, device=blocks.device)
-    H.index_add_(0, rows * K + cols, blocks)
+def _scatter_blocks(K, D, cell, plan, blocks):
+    """Sum (E, D, D) blocks into a (K*D, K*D) matrix at block (row, col),
+    ``cell`` = row * K + col (with its segment plan); repeated cells
+    accumulate."""
+    H = segment_sum(K * K, cell, blocks, plan)
     return H.reshape(K, K, D, D).permute(0, 2, 1, 3).reshape(K * D, K * D)
+
+
+def _normal_equations(K, D, Ji, Jj, w, r, plans):
+    """One iteration's dense (K*D, K*D) H and (K, D) b from the per-edge
+    Jacobians (E, 7, D) of the two vertices, weights and residuals.
+    ``plans``: the four block cells and the vertex index of the edges' two
+    ends (edge_i, then edge_j), each with its segment plan (built once per
+    solve)."""
+    cells, (ends, plan_b) = plans
+    H = (_scatter_blocks(K, D, *cells[0], torch.einsum("eri,e,erj->eij", Ji, w, Ji))
+         + _scatter_blocks(K, D, *cells[1], torch.einsum("eri,e,erj->eij", Jj, w, Jj))
+         + _scatter_blocks(K, D, *cells[2], torch.einsum("eri,e,erj->eij", Ji, w, Jj))
+         + _scatter_blocks(K, D, *cells[3], torch.einsum("eri,e,erj->eij", Jj, w, Ji)))
+    b = segment_sum(K, ends, torch.cat([
+        torch.einsum("eri,e,er->ei", Ji, w, r),
+        torch.einsum("eri,e,er->ei", Jj, w, r)]), plan_b)
+    return H, b
 
 
 def optimize_pose_graph(R, t, s,            # (K,3,3), (K,3), (K,)
@@ -96,18 +116,18 @@ def optimize_pose_graph(R, t, s,            # (K,3,3), (K,3), (K,)
     eye = torch.eye(K * D, dtype=dt, device=dev)
     lam = torch.tensor(damping, dtype=dt, device=dev)
     z = torch.zeros((ei.shape[0], 2 * D), dtype=dt, device=dev)
+    # The four block cells and the two vertex indices, each with the
+    # segment plan of its sums (None on the CPU), fixed once per solve.
+    ends = torch.cat([ei, ej])
+    plans = ([(c, segment_plan(K * K, c))
+              for c in (ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei)],
+             (ends, segment_plan(K, ends)))
     for _ in range(n_iters):
         args = (R[ei], t[ei], s[ei], R[ej], t[ej], s[ej], Rm, tm, sm)
         r_all = _edge_residual(*args)                        # (E, 7)
         J_all = forward_jacobian(lambda d: f(d, *args), z)  # (E, 7, 2D)
         Ji, Jj = J_all[:, :, :D], J_all[:, :, D:]
-        H = (_scatter_blocks(K, D, ei, ei, torch.einsum("eri,e,erj->eij", Ji, w, Ji))
-             + _scatter_blocks(K, D, ej, ej, torch.einsum("eri,e,erj->eij", Jj, w, Jj))
-             + _scatter_blocks(K, D, ei, ej, torch.einsum("eri,e,erj->eij", Ji, w, Jj))
-             + _scatter_blocks(K, D, ej, ei, torch.einsum("eri,e,erj->eij", Jj, w, Ji)))
-        b = torch.zeros((K, D), dtype=dt, device=dev)
-        b.index_add_(0, ei, torch.einsum("eri,e,er->ei", Ji, w, r_all))
-        b.index_add_(0, ej, torch.einsum("eri,e,er->ei", Jj, w, r_all))
+        H, b = _normal_equations(K, D, Ji, Jj, w, r_all, plans)
 
         H = H * free[:, None] * free[None, :] + torch.diag(fixd) + lam * eye
         d = -solve_nan(H, b.reshape(K * D)).reshape(K, D)

@@ -6,8 +6,8 @@ pose-inertial solve.  The problems are the ones ``test_torch_inertial.py``
 holds against JAX, rebuilt from the port alone (this file imports no JAX,
 so it runs on a card machine without it).  Each test states its tolerance:
 the same float32 solves with other reduction orders (cuBLAS, cuSOLVER and
-the unordered ``index_put_(accumulate=True)`` scatters of the inertial BA)
-agree to float32 rounding amplified by each problem's conditioning, with
+the inertial BA's scatter-adds, in the card's fixed order of
+``ops/segment.py`` against the CPU's input order) agree to float32 rounding amplified by each problem's conditioning, with
 the same bounds as against the reference.  These tests skip where no card
 is present.  On a GPU machine run
 
@@ -271,8 +271,8 @@ def test_inertial_ba_on_the_card_matches_the_cpu(dev, mode):
     keyframe biases with random-walk edges, and LocalInertialBA's window
     (the last 5 states free, a free anchor velocity and bias, the stereo
     row on half of the observations), from the same perturbed start: every
-    output within BA_TOL, the unordered scatter-adds of the normal
-    equations included; fixed states bit-identical."""
+    output within BA_TOL, the normal equations' scatter-adds in another
+    order than the CPU's included; fixed states bit-identical."""
     if mode == "shared_bias":
         c = _ba_problem(3)
         K = c["K"]
@@ -565,9 +565,13 @@ def test_mono_inertial_card_record(dev, monkeypatch):
     """Phase 14's session three times on the card: once with torch's
     deterministic algorithms and every inertial-only solve and early
     triangulation shadowed on the CPU, twice with the default kernels.
-    Each session initializes its IMU and passes the phase's gyro-bias wall
-    (3e-3); on the same inputs the card's init scale is within 1e-3 of the
-    CPU's.  The RECORD line holds each session's init attempts, gyro-bias
+    The two default sessions agree bit for bit (camera centres, bound
+    keypoints, init attempts, gyro bias and scale): the solvers' sums run
+    in a fixed order on the card (ops/segment.py).  Each session
+    initializes its IMU and passes the phase's gyro-bias wall (3e-3); on
+    the same inputs the card's init scale is within 1e-3 of the CPU's, and
+    the default sessions' init scale within 1e-3 of the deterministic
+    one's.  The RECORD line holds each session's init attempts, gyro-bias
     error and first-init scale, the shadows (the card's triangulation
     against the CPU's beside float32's own error against float64) and how
     the first default session's camera centres drift from the
@@ -589,13 +593,20 @@ def test_mono_inertial_card_record(dev, monkeypatch):
                     stage=r["stage"], attempts=r["attempts"],
                     median_bound_after_35=float(np.median(r["bound"][35:])))
 
+    a, b = default
+    same = {k: np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes()
+            for k in ("centres", "bound", "attempts", "gyro_err", "scale",
+                      "stage")}
     print("RECORD", json.dumps(dict(
         deterministic=dict(summary(det), init_shadow=det["init_shadow"],
                            tri_shadow=det["tri_shadow"]),
-        default=[summary(r) for r in default],
+        default=[summary(r) for r in default], default_identical=same,
         centre_drift=[None if not np.isfinite(d) else float(d)
                       for d in drift])))
+    assert all(same.values()), same
     for r in (det, *default):
         assert r["stage"] >= 1 and r["gyro_err"] < 3e-3, summary(r)
     assert det["init_shadow"] and max(
         s["scale_rel"] for s in det["init_shadow"]) < 1e-3
+    assert abs(a["scale"] / det["scale"] - 1) < 1e-3, (a["scale"],
+                                                       det["scale"])

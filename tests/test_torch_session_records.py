@@ -24,13 +24,20 @@
   ``patch_zncc_min=0.3``) through both packages, the port with its own
   seeded RANSAC draws as on the card: final state, scaled ATE, keyframes,
   fused and split frames.  Phase 21 holds the card to the reference's.
+- ``chip_smoke.py`` phase 19a's frames (the rectified EuRoC
+  stereo-inertial rig: seed 13, 40 frames, ``Camera.bf`` = fx x 0.11, the
+  images as uint8, as its PNGs hold them) fed in line through both
+  packages' ``SlamSystem`` (the reference's ``build_system`` raises on an
+  inertial YAML): IMU stage, init scale and metric ATE of each.
 
 Each test prints one ``RECORD`` JSON line with what it measured.  Run with
 ``JAX_PLATFORMS=cpu python -m pytest -q -s -m slow
 tests/test_torch_session_records.py``.
 """
 
+import importlib.util
 import json
+import os
 
 import numpy as np
 import pytest
@@ -297,3 +304,49 @@ def test_tracker_knob_session_record(name):
     print("RECORD", json.dumps(dict(session=name, **rec)))
     for r in rec.values():
         assert r["state"] in ("OK", "RECENTLY_LOST") and np.isfinite(r["ate"])
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _euroc_stereo_inertial_run(package, cs, scen):
+    """Phase 19a's session in line: the driver's config (stereo-inertial,
+    baseline 0.11, fps 10, the default IMU noise and init schedule) and
+    its frames, IMU rows and stamps."""
+    kw = dict(sensor="stereo-inertial", baseline=0.11)
+    slam = (JSlamSystem(JSystemConfig(tracker=JTrackerConfig(fps=10), **kw))
+            if package == "jax" else
+            SlamSystem(SystemConfig(tracker=TrackerConfig(fps=10),
+                                    device="cpu", **kw)))
+    for i, (left, right) in enumerate(scen["frames"]):
+        slam.track_stereo(cs._u8(left), cs._u8(right), scen["timestamps"][i],
+                          imu=scen["imu"][i])
+    rows = slam.trajectory()
+    metric, nm, _ = ate_rmse(rows[:, 0], rows[:, 1:4], scen["timestamps"],
+                             cs._centers(scen["R_gt"], scen["t_gt"]),
+                             with_scale=False)
+    tr = slam.tracker
+    return dict(state=slam.state.name, imu_stage=tr.imu_stage,
+                imu_init_scale=tr.stats.get("imu_init_scale"),
+                ate_metric=float(metric), nm=int(nm))
+
+
+@pytest.mark.slow
+def test_euroc_stereo_inertial_record():
+    """Both packages on phase 19a's 40 frames in line: each initializes its
+    IMU at scale 1 (bf > 0 fixes it) and passes phase 19a's walls (metric
+    ATE < 0.25 over > 35 frames); the record holds the reference's metric
+    ATE beside the port's (ROADMAP section 3, O7)."""
+    cs = _chip_smoke()
+    scen = cs.render_scenario("driver_si")
+    rec = {p: _euroc_stereo_inertial_run(p, cs, scen) for p in ("jax", "port")}
+    print("RECORD", json.dumps(rec))
+    for r in rec.values():
+        assert r["imu_stage"] >= 1 and r["imu_init_scale"] == 1.0
+        assert r["nm"] > 35 and r["ate_metric"] < 0.25
