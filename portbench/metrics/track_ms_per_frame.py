@@ -1,0 +1,16 @@
+"""The tracking stage (``StageTimers`` "track/track": pose prediction,
+the fused matching and pose rounds, KLT, local-map tracking) summed over
+the window's frames, per frame."""
+
+
+def read(ctx):
+    return _stage_ms(ctx, "track/track", per="frame")
+
+
+def _stage_ms(ctx, stage, per):
+    w = ctx.get("window")
+    if not w or stage not in w["stages"]:
+        return None
+    calls, seconds = w["stages"][stage]
+    n = w["frames"] if per == "frame" else calls
+    return None if n == 0 else 1e3 * seconds / n
