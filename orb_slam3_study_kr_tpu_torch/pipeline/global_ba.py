@@ -14,6 +14,11 @@ written back (``_apply_gba``); rows created between snapshot and write-back
 are corrected through the newest snapshot keyframe.  With ``cfg.bf > 0``
 the keyframes' stereo rows join the solve and each observation is culled
 at its own chi2 gate.
+
+Each call is a request of ``utils.profiling.DEFAULT_TIMERS``: the span
+``gba/call`` with children ``gba/assemble``, ``gba/upload``, ``ba/solve``
+(``solvers/local_ba.py``), ``gba/download`` and ``gba/apply`` (with
+``gba/cull``).
 """
 
 import contextlib
@@ -25,6 +30,7 @@ from orb_slam3_study_kr_tpu_torch.slam_map.map_state import NO_LM, MapState
 from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust
 from orb_slam3_study_kr_tpu_torch.solvers.robust import CHI2_MONO, CHI2_STEREO
 from orb_slam3_study_kr_tpu_torch.utils import resolve_device
+from orb_slam3_study_kr_tpu_torch.utils import DEFAULT_TIMERS as TIMERS
 
 # Above this dense cross-block size (K * M * 18 floats) the solve switches
 # to the matrix-free PCG assembly.
@@ -51,16 +57,17 @@ def global_bundle_adjustment(cfg, m: MapState, n_iters: int = 10,
     frozen."""
     dev = resolve_device(cfg.device, "TrackerConfig.device")
     lock = m.lock if use_lock else contextlib.nullcontext()
-    with lock:
-        snap = _assemble_gba(cfg, m)
-    if snap is None:
-        return False
-    if mesh is not None and mesh.size > 1:
-        out = _distributed_gba(cfg, mesh, snap, n_iters)
-    else:
-        out = _solve_gba(cfg, snap, n_iters, dev)
-    with lock:
-        _apply_gba(cfg, m, snap, out, cull_outliers)
+    with TIMERS.stage("gba/call", request=True):
+        with lock, TIMERS.stage("gba/assemble"):
+            snap = _assemble_gba(cfg, m)
+        if snap is None:
+            return False
+        if mesh is not None and mesh.size > 1:
+            out = _distributed_gba(cfg, mesh, snap, n_iters)
+        else:
+            out = _solve_gba(cfg, snap, n_iters, dev)
+        with lock, TIMERS.stage("gba/apply"):
+            _apply_gba(cfg, m, snap, out, cull_outliers)
     return True
 
 
@@ -115,19 +122,20 @@ def _solve_gba(cfg, s, n_iters, dev):
     assembly = ("dense" if s["K"] * s["M"] * 18 <= DENSE_CROSS_BLOCK_FLOATS
                 else "pcg")
 
-    def t(name):
-        return torch.as_tensor(s[name], device=dev)
-
-    stereo_kw = {}
-    if s["our"] is not None:
-        stereo_kw = dict(obs_ur=t("our"), bf=cfg.bf)
+    names = ("R_all", "t_all", "fixed_p", "X", "lm_mask", "op", "ol", "ouv",
+             "olev", "omask")
+    with TIMERS.stage("gba/upload"):
+        args = [torch.as_tensor(s[k], device=dev) for k in names]
+        stereo_kw = {}
+        if s["our"] is not None:
+            stereo_kw = dict(obs_ur=torch.as_tensor(s["our"], device=dev),
+                             bf=cfg.bf)
     R, tr, X_new, chi2, _ = bundle_adjust(
-        cfg.project_fn, cfg.project_jac_fn, t("R_all"), t("t_all"),
-        t("fixed_p"), t("X"), t("lm_mask"), t("op"), t("ol"), t("ouv"),
-        t("olev"), t("omask"), n_iters=n_iters, assembly=assembly,
-        wide_fov=cfg.is_kb8, **stereo_kw)
-    return {k: v.cpu().numpy() for k, v in
-            dict(R=R, t=tr, X_new=X_new, chi2=chi2).items()}
+        cfg.project_fn, cfg.project_jac_fn, *args, n_iters=n_iters,
+        assembly=assembly, wide_fov=cfg.is_kb8, **stereo_kw)
+    with TIMERS.stage("gba/download"):
+        return {k: v.cpu().numpy() for k, v in
+                dict(R=R, t=tr, X_new=X_new, chi2=chi2).items()}
 
 
 def _apply_gba(cfg, m, s, out, cull_outliers):
@@ -164,14 +172,16 @@ def _apply_gba(cfg, m, s, out, cull_outliers):
             m.lm_pos[new_lms] = (pc - tn) @ Rn
 
     if cull_outliers:
-        gate = CHI2_MONO
-        if cfg.bf > 0:
-            gate = np.where(m.kf_kp_ur[okf, okp] >= 0, CHI2_STEREO, CHI2_MONO)
-        bad = out["chi2"][: okf.size] > gate
-        m.kf_kp_lm[okf[bad], okp[bad]] = NO_LM
-        orphan = np.nonzero(m.lm_valid & (m.landmark_obs_count() < 2))[0]
-        if orphan.size:
-            m.remove_landmarks(orphan)
+        with TIMERS.stage("gba/cull"):
+            gate = CHI2_MONO
+            if cfg.bf > 0:
+                gate = np.where(m.kf_kp_ur[okf, okp] >= 0, CHI2_STEREO,
+                                CHI2_MONO)
+            bad = out["chi2"][: okf.size] > gate
+            m.kf_kp_lm[okf[bad], okp[bad]] = NO_LM
+            orphan = np.nonzero(m.lm_valid & (m.landmark_obs_count() < 2))[0]
+            if orphan.size:
+                m.remove_landmarks(orphan)
     m.change_idx += 1
 
 

@@ -17,6 +17,12 @@ Counterpart of ``orb_slam3_study_kr_tpu/solvers/local_ba.py``:
 - LM damping with accept/reject stays on the device.
 
 The caller culls observations whose final chi2 exceeds the 5.991 gate.
+
+Spans of ``utils.profiling.DEFAULT_TIMERS`` (traced only while a profiler
+runs): ``ba/solve`` with children ``ba/setup``, one ``ba/lm_iter`` per LM
+iteration (``ba/linearize``, ``ba/schur``, ``ba/update``) and ``ba/final``;
+in ``_schur_pcg`` ``ba/pcg_setup`` and ``ba/pcg_loop``.  Counts:
+``ba/lm_steps`` and ``ba/cg_iters``.
 """
 
 import torch
@@ -26,6 +32,7 @@ from orb_slam3_study_kr_tpu_torch.ops.segment import segment_plan, segment_sum
 from orb_slam3_study_kr_tpu_torch.solvers import robust
 from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import inv_nan, solve_nan
 from orb_slam3_study_kr_tpu_torch.solvers.reproj import residual_and_jacobians
+from orb_slam3_study_kr_tpu_torch.utils import DEFAULT_TIMERS as TIMERS
 
 
 def _diag(Hb, n):
@@ -66,20 +73,19 @@ def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
     else:
         shards = list(zip(Hll_inv, bl, E, obs_pose, obs_lm))
     freeK = (1.0 - fixed)[:, None]
-    Ys = [torch.einsum("nab,nbc->nac", Es, Hi[ol])        # (O, 6, 3)
-          for Hi, _, Es, _, ol in shards]
-    rhs = -(bp - psum_fn([segment_sum(K, op, torch.einsum("nab,nb->na", Y,
-                                                          bls[ol]), pp)
-                          for Y, (_, bls, _, op, ol), (pp, _)
-                          in zip(Ys, shards, plans)]))
-    rhs = rhs * freeK
-    Dk = Hpp_d - psum_fn([segment_sum(K, op, torch.einsum("nab,ncb->nac", Y,
-                                                          Es), pp)
-                          for Y, (_, _, Es, op, _), (pp, _)
-                          in zip(Ys, shards, plans)])
-    eye6 = torch.eye(6, dtype=dt, device=Hpp_d.device)
-    Dk = Dk * freeK[..., None] + eye6[None] * fixed[:, None, None]
-    Minv = inv_nan(Dk)
+    with TIMERS.stage("ba/pcg_setup"):
+        Ys = [torch.einsum("nab,nbc->nac", Es, Hi[ol])        # (O, 6, 3)
+              for Hi, _, Es, _, ol in shards]
+        rhs = -(bp - psum_fn([segment_sum(K, op, torch.einsum(
+            "nab,nb->na", Y, bls[ol]), pp)
+            for Y, (_, bls, _, op, ol), (pp, _) in zip(Ys, shards, plans)]))
+        rhs = rhs * freeK
+        Dk = Hpp_d - psum_fn([segment_sum(K, op, torch.einsum(
+            "nab,ncb->nac", Y, Es), pp)
+            for Y, (_, _, Es, op, _), (pp, _) in zip(Ys, shards, plans)])
+        eye6 = torch.eye(6, dtype=dt, device=Hpp_d.device)
+        Dk = Dk * freeK[..., None] + eye6[None] * fixed[:, None, None]
+        Minv = inv_nan(Dk)
 
     def u2_part(v, Hi, Es, op, ol, pp, lp):
         v = v.to(Es.device)
@@ -95,23 +101,25 @@ def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
                       for (Hi, _, Es, op, ol), (pp, lp) in zip(shards, plans)])
         return (u - u2) * freeK
 
-    x = torch.zeros((K, 6), dtype=dt, device=Hpp_d.device)
-    r = rhs
-    z = torch.einsum("kab,kb->ka", Minv, r)
-    p = z
-    rz = torch.sum(r * z)
-    zero = torch.zeros((), dtype=dt, device=Hpp_d.device)
-    for _ in range(n_cg):
-        Ap = matvec(p)
-        denom = torch.sum(p * Ap)
-        alpha = torch.where(torch.abs(denom) > 1e-20, rz / denom, zero)
-        x = x + alpha * p
-        r = r - alpha * Ap
+    with TIMERS.stage("ba/pcg_loop"):
+        TIMERS.count("ba/cg_iters", n_cg)
+        x = torch.zeros((K, 6), dtype=dt, device=Hpp_d.device)
+        r = rhs
         z = torch.einsum("kab,kb->ka", Minv, r)
-        rz_new = torch.sum(r * z)
-        beta = torch.where(torch.abs(rz) > 1e-20, rz_new / rz, zero)
-        p = z + beta * p
-        rz = rz_new
+        p = z
+        rz = torch.sum(r * z)
+        zero = torch.zeros((), dtype=dt, device=Hpp_d.device)
+        for _ in range(n_cg):
+            Ap = matvec(p)
+            denom = torch.sum(p * Ap)
+            alpha = torch.where(torch.abs(denom) > 1e-20, rz / denom, zero)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = torch.einsum("kab,kb->ka", Minv, r)
+            rz_new = torch.sum(r * z)
+            beta = torch.where(torch.abs(rz) > 1e-20, rz_new / rz, zero)
+            p = z + beta * p
+            rz = rz_new
     return x
 
 
@@ -129,96 +137,117 @@ def bundle_adjust(project_fn, project_jac_fn,
     fisheye cheirality |p| > 1e-3 in place of z > 1e-3."""
     if assembly not in ("dense", "pcg"):
         raise ValueError(f"bundle_adjust: unknown assembly {assembly!r}")
-    K = R_cw.shape[0]
-    M = X.shape[0]
-    dt = R_cw.dtype
-    dev = R_cw.device
-    obs_pose = obs_pose.long()
-    obs_lm = obs_lm.long()
-    inv_sigma2 = robust.octave_inv_sigma2(obs_level)
-    if obs_ur is None:
-        chi2_gate = torch.tensor(robust.CHI2_MONO, dtype=dt, device=dev)
-    else:
-        chi2_gate = torch.where(
-            obs_ur >= 0, torch.tensor(robust.CHI2_STEREO, dtype=dt, device=dev),
-            torch.tensor(robust.CHI2_MONO, dtype=dt, device=dev))
-    huber_delta = torch.sqrt(chi2_gate)
-    eye3 = torch.eye(3, dtype=dt, device=dev)
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    cell = obs_pose * M + obs_lm
-    # The segment sums' orders, fixed once per solve (None on the CPU).
-    pose_plan = segment_plan(K, obs_pose)
-    lm_plan = segment_plan(M, obs_lm)
-    cell_plan = segment_plan(K * M, cell) if assembly == "dense" else None
+    with TIMERS.stage("ba/solve"):
+        K = R_cw.shape[0]
+        M = X.shape[0]
+        dt = R_cw.dtype
+        dev = R_cw.device
+        with TIMERS.stage("ba/setup"):
+            obs_pose = obs_pose.long()
+            obs_lm = obs_lm.long()
+            inv_sigma2 = robust.octave_inv_sigma2(obs_level)
+            if obs_ur is None:
+                chi2_gate = torch.tensor(robust.CHI2_MONO, dtype=dt,
+                                         device=dev)
+            else:
+                chi2_gate = torch.where(
+                    obs_ur >= 0,
+                    torch.tensor(robust.CHI2_STEREO, dtype=dt, device=dev),
+                    torch.tensor(robust.CHI2_MONO, dtype=dt, device=dev))
+            huber_delta = torch.sqrt(chi2_gate)
+            eye3 = torch.eye(3, dtype=dt, device=dev)
+            eye6 = torch.eye(6, dtype=dt, device=dev)
+            cell = obs_pose * M + obs_lm
+            # The segment sums' orders, fixed once per solve (None on the
+            # CPU).
+            pose_plan = segment_plan(K, obs_pose)
+            lm_plan = segment_plan(M, obs_lm)
+            cell_plan = (segment_plan(K * M, cell) if assembly == "dense"
+                         else None)
 
-    def huber_rho(chi2):
-        r = torch.sqrt(torch.clamp(chi2, min=1e-12))
-        return torch.where(chi2 <= chi2_gate, chi2,
-                           2 * huber_delta * r - chi2_gate)
+            def huber_rho(chi2):
+                r = torch.sqrt(torch.clamp(chi2, min=1e-12))
+                return torch.where(chi2 <= chi2_gate, chi2,
+                                   2 * huber_delta * r - chi2_gate)
 
-    def compute(R_all, t_all, X_all):
-        r, J_pose, J_point, p = residual_and_jacobians(
-            project_jac_fn, project_fn, R_all[obs_pose], t_all[obs_pose],
-            X_all[obs_lm], obs_uv, ur_obs=obs_ur, bf=bf)
-        chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
-        valid = obs_mask * lm_mask[obs_lm] * robust.cheirality(p, wide_fov)
-        w = inv_sigma2 * valid
-        if use_huber:
-            w = w * robust.huber_weight(chi2, huber_delta)
-            cost = torch.sum(huber_rho(chi2) * valid)
-        else:
-            cost = torch.sum(chi2 * valid)
-        return r, J_pose, J_point, w, chi2, cost
+            def compute(R_all, t_all, X_all):
+                r, J_pose, J_point, p = residual_and_jacobians(
+                    project_jac_fn, project_fn, R_all[obs_pose],
+                    t_all[obs_pose], X_all[obs_lm], obs_uv, ur_obs=obs_ur,
+                    bf=bf)
+                chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
+                valid = (obs_mask * lm_mask[obs_lm]
+                         * robust.cheirality(p, wide_fov))
+                w = inv_sigma2 * valid
+                if use_huber:
+                    w = w * robust.huber_weight(chi2, huber_delta)
+                    cost = torch.sum(huber_rho(chi2) * valid)
+                else:
+                    cost = torch.sum(chi2 * valid)
+                return r, J_pose, J_point, w, chi2, cost
 
-    free_pose = (1.0 - fixed)[obs_pose]
-    fixd = fixed.repeat_interleave(6)
-    R_all, t_all, X_all = R_cw, t_cw, X
-    lam = torch.tensor(init_lambda, dtype=dt, device=dev)
-    cost = compute(R_all, t_all, X_all)[5]
-    for _ in range(n_iters):
-        r, J_pose, J_point, w, chi2, _ = compute(R_all, t_all, X_all)
-        Jp = J_pose * free_pose[:, None, None]
-        Hpp = segment_sum(K, obs_pose, torch.einsum("nia,n,nib->nab", Jp, w,
-                                                    Jp), pose_plan)
-        bp = segment_sum(K, obs_pose, torch.einsum("nia,n,ni->na", Jp, w, r),
-                         pose_plan)
-        Hll = segment_sum(M, obs_lm, torch.einsum("nia,n,nib->nab", J_point,
-                                                  w, J_point), lm_plan)
-        bl = segment_sum(M, obs_lm, torch.einsum("nia,n,ni->na", J_point, w,
-                                                 r), lm_plan)
-        E = torch.einsum("nia,n,nib->nab", Jp, w, J_point)   # (O, 6, 3)
+            free_pose = (1.0 - fixed)[obs_pose]
+            fixd = fixed.repeat_interleave(6)
+            R_all, t_all, X_all = R_cw, t_cw, X
+            lam = torch.tensor(init_lambda, dtype=dt, device=dev)
+            cost = compute(R_all, t_all, X_all)[5]
+        for _ in range(n_iters):
+            with TIMERS.stage("ba/lm_iter"):
+                TIMERS.count("ba/lm_steps")
+                with TIMERS.stage("ba/linearize"):
+                    r, J_pose, J_point, w, chi2, _ = compute(R_all, t_all,
+                                                             X_all)
+                    Jp = J_pose * free_pose[:, None, None]
+                    Hpp = segment_sum(K, obs_pose, torch.einsum(
+                        "nia,n,nib->nab", Jp, w, Jp), pose_plan)
+                    bp = segment_sum(K, obs_pose, torch.einsum(
+                        "nia,n,ni->na", Jp, w, r), pose_plan)
+                    Hll = segment_sum(M, obs_lm, torch.einsum(
+                        "nia,n,nib->nab", J_point, w, J_point), lm_plan)
+                    bl = segment_sum(M, obs_lm, torch.einsum(
+                        "nia,n,ni->na", J_point, w, r), lm_plan)
+                    E = torch.einsum("nia,n,nib->nab", Jp, w,
+                                     J_point)                   # (O, 6, 3)
 
-        Hll_d = Hll + lam * (eye3[None] + _diag(Hll, 3))
-        Hpp_d = Hpp + lam * (eye6[None] + _diag(Hpp, 6))
-        Hll_inv = inv_nan(Hll_d) * lm_mask[:, None, None]
+                with TIMERS.stage("ba/schur"):
+                    Hll_d = Hll + lam * (eye3[None] + _diag(Hll, 3))
+                    Hpp_d = Hpp + lam * (eye6[None] + _diag(Hpp, 6))
+                    Hll_inv = inv_nan(Hll_d) * lm_mask[:, None, None]
+                    if assembly == "dense":
+                        # Dense cross block W (K, M, 6, 3) and the reduced
+                        # camera system.
+                        W = segment_sum(K * M, cell, E, cell_plan).reshape(
+                            K, M, 6, 3)
+                        Wi = torch.einsum("kmab,mbc->kmac", W, Hll_inv)
+                        S = -torch.einsum("kmac,lmbc->kalb", Wi, W).reshape(
+                            6 * K, 6 * K)
+                        S = S + torch.block_diag(*Hpp_d)
+                        rhs = -(bp - torch.einsum("kmab,mb->ka", Wi,
+                                                  bl)).reshape(6 * K)
+                        S = (S * (1 - fixd)[:, None] * (1 - fixd)[None, :]
+                             + torch.diag(fixd))
+                        dp = solve_nan(S, rhs).reshape(K, 6)
+                    else:
+                        dp = _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose,
+                                        obs_lm, fixed, n_cg,
+                                        [(pose_plan, lm_plan)])
 
-        if assembly == "dense":
-            # Dense cross block W (K, M, 6, 3) and the reduced camera system.
-            W = segment_sum(K * M, cell, E, cell_plan).reshape(K, M, 6, 3)
-            Wi = torch.einsum("kmab,mbc->kmac", W, Hll_inv)
-            S = -torch.einsum("kmac,lmbc->kalb", Wi, W).reshape(6 * K, 6 * K)
-            S = S + torch.block_diag(*Hpp_d)
-            rhs = -(bp - torch.einsum("kmab,mb->ka", Wi, bl)).reshape(6 * K)
-            S = S * (1 - fixd)[:, None] * (1 - fixd)[None, :] + torch.diag(fixd)
-            dp = solve_nan(S, rhs).reshape(K, 6)
-        else:
-            dp = _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm,
-                            fixed, n_cg, [(pose_plan, lm_plan)])
+                with TIMERS.stage("ba/update"):
+                    Wtdp = segment_sum(M, obs_lm, torch.einsum(
+                        "nab,na->nb", E, dp[obs_pose]), lm_plan)
+                    dl = -torch.einsum("mab,mb->ma", Hll_inv, bl + Wtdp)
 
-        Wtdp = segment_sum(M, obs_lm, torch.einsum("nab,na->nb", E,
-                                                   dp[obs_pose]), lm_plan)
-        dl = -torch.einsum("mab,mb->ma", Hll_inv, bl + Wtdp)
-
-        dR, dtr = exp_se3(dp)
-        R_new, t_new = se3_compose(dR, dtr, R_all, t_all)
-        X_new = X_all + dl * lm_mask[:, None]
-        cost_new = compute(R_new, t_new, X_new)[5]
-        accept = cost_new < cost
-        R_all = torch.where(accept, R_new, R_all)
-        t_all = torch.where(accept, t_new, t_all)
-        X_all = torch.where(accept, X_new, X_all)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
-                          torch.clamp(lam * 4.0, max=1e3))
-        cost = torch.where(accept, cost_new, cost)
-    chi2 = compute(R_all, t_all, X_all)[4]
+                    dR, dtr = exp_se3(dp)
+                    R_new, t_new = se3_compose(dR, dtr, R_all, t_all)
+                    X_new = X_all + dl * lm_mask[:, None]
+                    cost_new = compute(R_new, t_new, X_new)[5]
+                    accept = cost_new < cost
+                    R_all = torch.where(accept, R_new, R_all)
+                    t_all = torch.where(accept, t_new, t_all)
+                    X_all = torch.where(accept, X_new, X_all)
+                    lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
+                                      torch.clamp(lam * 4.0, max=1e3))
+                    cost = torch.where(accept, cost_new, cost)
+        with TIMERS.stage("ba/final"):
+            chi2 = compute(R_all, t_all, X_all)[4]
     return R_all, t_all, X_all, chi2, cost

@@ -1,0 +1,16 @@
+"""Device milliseconds per LM step of the global BA in ``ba/update``
+(``solvers/local_ba.bundle_adjust``: back-substitution, the pose update,
+the trial cost and the accept), over the ``ba/lm_steps`` count of
+``gba/call`` requests."""
+
+
+def read(ctx):
+    if not ctx.get("trace"):
+        return None
+    from orb_slam3_study_kr_tpu_torch.utils import profiling
+    timers = getattr(profiling, "DEFAULT_TIMERS", None)
+    if timers is None:          # a port without the span log
+        return None
+    t = timers.totals("gba/call")
+    ms, n = t["device_ms"].get("ba/update"), t["counts"].get("ba/lm_steps")
+    return None if ms is None or not n else ms / n
