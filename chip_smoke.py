@@ -5,8 +5,8 @@
 
 Needs one CUDA card and nvcc.  Phases, one printed line each:
   1. the card (nvidia-smi name and power limit);
-  2. build of the hand-written kernels from csrc/ (one nvcc per source, in
-     parallel, then one link);
+  2. build of the hand-written kernels from csrc/, one library per source
+     group (one nvcc per source, in parallel, then one link);
   3. K1 (fast_nms_blur_pyramid) against its plain PyTorch version over the
      8-level pyramid of a rendered 752x480 frame, in one launch;
   4. K2 (gated_nn) against its plain version at N = total_slots, L = 4096
@@ -16,7 +16,20 @@ Needs one CUDA card and nvcc.  Phases, one printed line each:
      frame B's features against frame A's, an 11-set window batch and the
      sides swapped, a tie case with invalid targets and an all-invalid
      batch row, T = 1 and 1001;
-Phases 3-5 also time each kernel three ways: its device time per launch
+  5b. K4 (schur_pcg, the global BA's 60-iteration PCG loop) at the
+     benchmark cell's shapes (K = 2048 poses 0.1 m apart, M = 153,600
+     landmarks with tracks of 8 consecutive poses, O = 1,228,800
+     observations): one LM step at damping 1e-2 through
+     bundle_adjust(assembly="pcg"), the global BA's entry, which must
+     launch K4 180 times (the kernels JSON's count); on that step's
+     reduced camera system, K4 against the plain loop of
+     solvers/local_ba._schur_pcg, both in float32 against the plain loop
+     in float64, the float64 kernel too, two calls bit-identical; and the
+     same problem with its last 8,191 observations turned into a bucketed
+     map's padding (pose 0, landmark 0, mask 0): x bit-identical to the
+     live observations' alone, the device time with the padding kept out
+     of the kernel's ranges and left in;
+Phases 3-5b also time each kernel three ways: its device time per launch
 (CUDA events around 100 back-to-back launches of the bare kernel on inputs
 prepared once, queued behind a device-side sleep so that the host's enqueue
 time stays outside the window), its route time per call (the wrapper as
@@ -209,6 +222,24 @@ PEAK_INT8_OPS_S = 1979e12
 K3_TC_OPS_PER_PAIR = 2 * 256
 K3_CMP_OPS_PER_PAIR = 1 + 3 + 2
 K3_ROW_OUT_B, K3_COL_OUT_B = 12, 4
+# K4, one CG iteration.  Per observation: E's 18 values read once, y's 6
+# values written and read, its pose and its pose-ordered position (two
+# int32); per landmark Hll_inv's 9 values and an int32 offset; per pose
+# Hpp_d and Minv (36 each), freeK, an offset, and 14 passes over a (K, 6)
+# vector (A reads z and p; B reads z and p, writes p and Ap; C reads p,
+# Ap, x and r, writes x, r and z).  Operations per observation: E^T v and
+# E z (2 x 18 multiply-adds), the direction and freeK (2 x 6), the pose
+# sum (6); per landmark Hll_inv t (9 multiply-adds); per pose Hpp_d v and
+# Minv r (2 x 36 multiply-adds) and the updates (about 40).
+K4_N_CG = 60
+K4_OPS_PER_OBS = 2 * 2 * 18 + 2 * 6 + 6
+K4_OPS_PER_LM = 2 * 9
+K4_OPS_PER_POSE = 2 * 2 * 36 + 40
+
+
+def _k4_bytes(K, M, O, item):
+    return (O * (18 + 2 * 6) * item + O * 2 * 4 + M * (9 * item + 4)
+            + K * ((2 * 36 + 1 + 14 * 6) * item + 4))
 
 
 def _bound(nbytes, ops):
@@ -248,10 +279,12 @@ def phase_card():
 def phase_build():
     from orb_slam3_study_kr_tpu_torch.ops import cuda_lib
     t0 = time.perf_counter()
-    so = cuda_lib.build()
-    cuda_lib.load()
+    sos = [cuda_lib.build(g) for g in cuda_lib.GROUPS]
+    for g in cuda_lib.GROUPS:
+        cuda_lib.load(g)
     secs = time.perf_counter() - t0
-    print(f"phase build: {os.path.relpath(so, HERE)} in {secs:.3f} s")
+    print(f"phase build: {', '.join(os.path.relpath(so, HERE) for so in sos)} "
+          f"in {secs:.3f} s")
     return dict(build_s=secs)
 
 
@@ -512,16 +545,224 @@ def phase_k3(dev, img_a, img_b):
     return dict(r, max_abs_err=max_err, N=N, W=W, n_ok=n_ok)
 
 
+def _k4_problem(dev, K=2048, M=153_600, track=8, seed=17, lam=1e-2, pad=0):
+    """One LM step (damping lam) of a mono bundle adjustment at the
+    benchmark cell's shapes: K poses 0.1 m apart along x (the first two
+    fixed), M landmarks 4-10 m ahead, each seen by `track` consecutive
+    poses with 0.5 px noise, observations stored pose by pose as a map
+    stores them.  With pad > 0 the last `pad` observations become padding
+    (pose 0, landmark 0, mask 0), as pipeline/global_ba.py pads a map's O
+    up to a multiple of 8192.  Returns (ba, system, index): ba() runs
+    bundle_adjust(assembly="pcg", n_iters=1) on the problem, the global
+    BA's entry into K4; system is the arguments of its _schur_pcg call but
+    the plans and index the index it passes, float32 on dev."""
+    import functools
+    import numpy as np
+    import torch
+    from orb_slam3_study_kr_tpu_torch.cameras import pinhole
+    from orb_slam3_study_kr_tpu_torch.lie.se3 import exp_se3
+    from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust, local_ba
+    rng = np.random.default_rng(seed)
+    xi = np.zeros((K, 6), np.float32)
+    xi[:, 3] = -0.1 * np.arange(K)
+    R, t = (a.numpy() for a in exp_se3(torch.as_tensor(xi)))
+    X = np.stack([rng.uniform(-0.5, 0.1 * K + 0.5, M), rng.uniform(-2, 2, M),
+                  rng.uniform(4, 10, M)], -1).astype(np.float32)
+    first = np.clip((X[:, 0] / 0.1).astype(np.int64) - track // 2, 0,
+                    K - track)
+    op = (first[:, None] + np.arange(track)).reshape(-1)
+    ol = np.repeat(np.arange(M), track)
+    order = np.argsort(op, kind="stable")
+    op, ol = op[order], ol[order]
+    params = torch.tensor([458.654, 457.296, 367.215, 248.375, 0, 0, 0, 0, 0])
+    pc = np.einsum("nab,nb->na", R[op], X[ol]) + t[op]
+    uv = pinhole.project(params, torch.as_tensor(pc)).numpy()
+    uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+    level = rng.integers(0, 3, op.size).astype(np.int32)
+    mask = np.ones(op.size, np.float32)
+    if pad:
+        op[-pad:], ol[-pad:], uv[-pad:], level[-pad:], mask[-pad:] = 0, 0, 0, 0, 0
+    fixed = np.zeros(K, np.float32)
+    fixed[:2] = 1
+    t_noisy = (t + rng.normal(0, 0.02, t.shape) * (1 - fixed)[:, None])
+    X_noisy = X + rng.normal(0, 0.05, X.shape)
+    arrays = (R, t_noisy.astype(np.float32), fixed,
+              X_noisy.astype(np.float32), np.ones(M, np.float32),
+              op.astype(np.int32), ol.astype(np.int32), uv, level, mask)
+    p = params.to(dev)
+    args = [torch.as_tensor(a, device=dev) for a in arrays]
+
+    def ba():
+        return bundle_adjust(functools.partial(pinhole.project, p),
+                             functools.partial(pinhole.project_jac, p),
+                             *args, n_iters=1, assembly="pcg",
+                             init_lambda=lam)
+
+    got = []
+
+    def record(*a, **kw):
+        got.append((a[:8], kw["index"]))
+        return torch.zeros_like(a[1])
+
+    orig = local_ba._schur_pcg
+    local_ba._schur_pcg = record
+    try:
+        ba()
+    finally:
+        local_ba._schur_pcg = orig
+    return ba, got[0][0], got[0][1]
+
+
+def phase_k4(dev):
+    import torch
+    from orb_slam3_study_kr_tpu_torch.ops import cuda_schur
+    from orb_slam3_study_kr_tpu_torch.ops.segment import segment_plan
+    from orb_slam3_study_kr_tpu_torch.solvers import local_ba
+    from orb_slam3_study_kr_tpu_torch.utils.profiling import device_ms_per_launch
+    ba, a32, idx = _k4_problem(dev)
+    # The global BA's entry, unpatched: one LM step through K4.
+    with _Launches() as entry:
+        out = ba()
+    launches = entry.counts["schur_pcg"]
+    if launches != 3 * K4_N_CG or not all(bool(torch.isfinite(o).all())
+                                          for o in out[:3]):
+        raise AssertionError(f"K4: bundle_adjust(assembly='pcg', n_iters=1) "
+                             f"launched {launches} kernels, expected "
+                             f"{3 * K4_N_CG}")
+    a64 = tuple(t.double() if t.is_floating_point() else t for t in a32)
+    Hpp, bp, Hll_inv, bl, E, op, ol, fixed = a32
+    K, M, O = Hpp.shape[0], Hll_inv.shape[0], op.numel()
+    plans = [(segment_plan(K, op), segment_plan(M, ol))]
+
+    def fused(a):
+        return local_ba._schur_pcg(*a, K4_N_CG, plans, index=idx)
+
+    def plain(a):
+        Hpp, bp, Hi, bl, E, op, ol, fx = a
+        return local_ba._schur_pcg(Hpp, bp, [Hi], [bl], [E], [op], [ol], fx,
+                                   K4_N_CG, plans, psum_fn=local_ba._only)
+
+    n0 = cuda_schur.schur_pcg.launches
+    x_k = fused(a32)
+    x_k2 = fused(a32)
+    torch.cuda.synchronize()
+    repeat_launches = cuda_schur.schur_pcg.launches - n0
+    if repeat_launches != 2 * 3 * K4_N_CG:
+        raise AssertionError(f"K4: {repeat_launches} launches for two calls "
+                             f"of {K4_N_CG} iterations")
+    if not torch.equal(x_k, x_k2):
+        raise AssertionError("K4: two calls on one system differ")
+    x_p, x64, x64_k = plain(a32), plain(a64), fused(a64)
+    scale = float(x64.abs().max())
+    err = {k: float((x.double() - x64).abs().max()) / scale
+           for k, x in (("kernel_f32", x_k), ("plain_f32", x_p),
+                        ("kernel_f64", x64_k))}
+    err["kernel_vs_plain_f32"] = float((x_k - x_p).abs().max()) / scale
+    # The kernel in float32 is held to the plain loop's own float32 error
+    # against float64 (4x, or 1e-5 of the scale), the float64 kernel to
+    # float64 rounding.
+    if not (torch.isfinite(x_k).all() and scale > 0
+            and err["kernel_f32"] <= max(4 * err["plain_f32"], 1e-5)
+            and err["kernel_f64"] <= 1e-9):
+        raise AssertionError(f"K4 against the plain loop: {err}")
+    # The bare loop, the wrapper and the plain loop, per CG iteration, on
+    # the same system; and the per-LM-step gather of E into planes.
+    shards = [(Hll_inv, bl, E, op, ol)]
+    rhs, Minv = local_ba._pcg_setup(Hpp, bp, fixed, shards, plans,
+                                    local_ba._only)
+    Ep = cuda_schur.landmark_planes(E, idx)
+    launch, _ = cuda_schur.schur_pcg_call(Hpp, Hll_inv, Ep, Minv, rhs, fixed,
+                                          idx, 2)
+    device_ms = device_ms_per_launch(launch) / 2
+    route_ms = _per_call_ms(lambda: cuda_schur.schur_pcg(
+        Hpp, Hll_inv, Ep, Minv, rhs, fixed, idx, K4_N_CG), n=10) / K4_N_CG
+    freeK = (1.0 - fixed)[:, None]
+    plain_ms = _per_call_ms(lambda: local_ba._pcg_plain(
+        lambda v: local_ba._schur_matvec(v, Hpp, freeK, shards, plans,
+                                         local_ba._only),
+        Minv, rhs, K4_N_CG), n=2) / K4_N_CG
+    planes_ms = _per_call_ms(lambda: cuda_schur.landmark_planes(E, idx), n=20)
+    nbytes = _k4_bytes(K, M, O, 4)
+    ops = O * K4_OPS_PER_OBS + M * K4_OPS_PER_LM + K * K4_OPS_PER_POSE
+    bound_ms, bound_by = _bound(nbytes, ops)
+    padded = _k4_padded(dev, device_ms_per_launch)
+    print(f"phase K4: bundle_adjust(assembly='pcg', n_iters=1) at K={K} "
+          f"M={M} O={O} launched K4 {launches} times; {K4_N_CG} CG "
+          f"iterations: relative "
+          f"to max |x| of the float64 plain loop ({scale:.4g}), kernel "
+          f"{err['kernel_f32']:.3e}, plain {err['plain_f32']:.3e} (float32), "
+          f"kernel {err['kernel_f64']:.3e} (float64), kernel against plain "
+          f"{err['kernel_vs_plain_f32']:.3e}; two calls bit-identical, "
+          f"{repeat_launches} launches; per CG iteration: device "
+          f"{device_ms:.5f} ms, "
+          f"route {route_ms:.5f} ms, plain {plain_ms:.5f} ms; bound "
+          f"{bound_ms:.5f} ms by {bound_by} (max({nbytes} B / 3.35 TB/s, "
+          f"{ops} op / 67 T/s)), device time at {bound_ms / device_ms:.3f} "
+          f"of the bound; E to planes {planes_ms:.5f} ms an LM step; "
+          f"{padded['pad']} observations padded (live O "
+          f"{padded['live']}): device {padded['device_ms']:.5f} ms an "
+          f"iteration, {padded['device_unmasked_ms']:.5f} ms with the "
+          f"padding left in the ranges, x bit-identical to the live "
+          f"observations' alone")
+    return dict(max_abs_err=err["kernel_vs_plain_f32"] * scale, err=err,
+                device_ms=device_ms, route_ms=route_ms, plain_ms=plain_ms,
+                planes_ms=planes_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, ops=ops, K=K, M=M, O=O, launches=launches,
+                repeat_launches=repeat_launches, padded=padded)
+
+
+def _k4_padded(dev, device_ms_per_launch, pad=8191):
+    """K4 on the cell's problem with its last `pad` observations turned
+    into a bucketed map's padding (O not a multiple of 8192 before the
+    bucket), through the index bundle_adjust builds: x bit-identical to
+    the kernel over the live observations alone, and the device time an
+    iteration, also with the padding left in the ranges (the index built
+    without the mask) to show what keeping it out saves."""
+    import torch
+    from orb_slam3_study_kr_tpu_torch.ops import cuda_schur
+    from orb_slam3_study_kr_tpu_torch.ops.segment import segment_plan
+    from orb_slam3_study_kr_tpu_torch.solvers import local_ba
+    _, a, idx = _k4_problem(dev, pad=pad)
+    Hpp, bp, Hll_inv, bl, E, op, ol, fixed = a
+    K, M, O = Hpp.shape[0], Hll_inv.shape[0], op.numel()
+    live = O - pad
+    if int(idx.lm_off[M]) != live or int(idx.pose_off[K]) != live:
+        raise AssertionError(f"K4 padded: ranges cover {int(idx.lm_off[M])} "
+                             f"and {int(idx.pose_off[K])} of {live} live")
+    plans = [(segment_plan(K, op), segment_plan(M, ol))]
+    rhs, Minv = local_ba._pcg_setup(Hpp, bp, fixed, [(Hll_inv, bl, E, op, ol)],
+                                    plans, local_ba._only)
+    alone = cuda_schur.schur_index(K, M, op[:live], ol[:live])
+    full = cuda_schur.schur_index(K, M, op, ol, *plans[0])
+    res = {}
+    for name, ix, Es in (("masked", idx, E), ("alone", alone, E[:live]),
+                         ("unmasked", full, E)):
+        Ep = cuda_schur.landmark_planes(Es, ix)
+        res[name] = cuda_schur.schur_pcg(Hpp, Hll_inv, Ep, Minv, rhs, fixed,
+                                         ix, K4_N_CG)
+        if name != "alone":
+            launch, _ = cuda_schur.schur_pcg_call(Hpp, Hll_inv, Ep, Minv, rhs,
+                                                  fixed, ix, 2)
+            res[name + "_ms"] = device_ms_per_launch(launch) / 2
+    if not torch.equal(res["masked"], res["alone"]):
+        raise AssertionError("K4 padded: x differs from the live "
+                             "observations' alone")
+    return dict(pad=pad, live=live, device_ms=res["masked_ms"],
+                device_unmasked_ms=res["unmasked_ms"])
+
+
 class _Launches:
     """Reset every kernel's launch counter on entry, read them on exit."""
 
     def __enter__(self):
         import torch
         from orb_slam3_study_kr_tpu_torch.ops import (cuda_fast, cuda_hamming,
-                                                      cuda_matching)
+                                                      cuda_matching,
+                                                      cuda_schur)
         self.wrappers = dict(fast_nms_blur=cuda_fast.fast_nms_blur_pyramid,
                              gated_nn=cuda_matching.gated_nn,
-                             hamming_nn=cuda_hamming.hamming_nn)
+                             hamming_nn=cuda_hamming.hamming_nn,
+                             schur_pcg=cuda_schur.schur_pcg)
         torch.cuda.synchronize()
         for f in self.wrappers.values():
             f.launches = 0
@@ -2535,6 +2776,7 @@ def main(argv=None):
                     scen["fisheye_mono"]["frames"][0][0])
     out["k2"] = run("k2", phase_k2, dev, img_a, img_b)
     out["k3"] = run("k3", phase_k3, dev, img_a, img_b)
+    out["k4"] = run("k4", phase_k4, dev)
     recorder = _Recorder()
     with recorder.recording("local_ba"):
         loop_off = run("loop_off", phase_loop_off, dev, scen["loop_off"])
@@ -2590,15 +2832,22 @@ def main(argv=None):
              "async_inertial", "async_atlas")
     launches = {k: sum(out[p]["launches"][k] for p in paths)
                 for k in ("fast_nms_blur", "gated_nn", "hamming_nn")}
+    # K4 runs where the global BA takes the PCG assembly (above 512
+    # keyframes), on none of the sessions above: its count adds phase 5b's
+    # one LM step through bundle_adjust, the global BA's entry (180).
+    launches["schur_pcg"] = out["k4"]["launches"] + sum(
+        out[p]["launches"].get("schur_pcg", 0) for p in paths)
     kernels = []
     for name, key, src, replaces in (
             ("fast_nms_blur", "k1", "fast_nms_blur.cu", "pallas_fast.py:122"),
             ("gated_nn", "k2", "gated_nn.cu", "pallas_matching.py:144"),
-            ("hamming_nn", "k3", "hamming_nn.cu", "pallas_matching.py:210")):
+            ("hamming_nn", "k3", "hamming_nn.cu", "pallas_matching.py:210"),
+            ("schur_pcg", "k4", "schur_pcg.cu", None)):
         r = out[key]
         kernels.append(dict(
             name=name, route="cuda", source=f"{PKG}/csrc/{src}",
-            replaces=f"orb_slam3_study_kr_tpu/ops/{replaces}",
+            replaces=(f"orb_slam3_study_kr_tpu/ops/{replaces}" if replaces
+                      else None),
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["route_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"]))

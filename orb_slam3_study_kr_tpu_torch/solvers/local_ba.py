@@ -13,7 +13,9 @@ Counterpart of ``orb_slam3_study_kr_tpu/solvers/local_ba.py``:
   system S = Hpp - W Hll^-1 W^T from the dense (K, M, 6, 3) cross block and
   solves it densely; ``assembly="pcg"`` (global BA on large maps) never
   forms the cross block and solves S matrix-free with block-Jacobi
-  preconditioned conjugate gradients, two segment-sum sweeps per matvec;
+  preconditioned conjugate gradients, two segment-sum sweeps per matvec
+  (on the card, one shard: the CG loop as the kernels of
+  ``ops/cuda_schur.py``);
 - LM damping with accept/reject stays on the device.
 
 The caller culls observations whose final chi2 exceeds the 5.991 gate.
@@ -28,6 +30,7 @@ in ``_schur_pcg`` ``ba/pcg_setup`` and ``ba/pcg_loop``.  Counts:
 import torch
 
 from orb_slam3_study_kr_tpu_torch.lie.se3 import exp_se3, se3_compose
+from orb_slam3_study_kr_tpu_torch.ops import cuda_schur
 from orb_slam3_study_kr_tpu_torch.ops.segment import segment_plan, segment_sum
 from orb_slam3_study_kr_tpu_torch.solvers import robust
 from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import inv_nan, solve_nan
@@ -45,13 +48,19 @@ def _only(parts):
 
 
 def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
-               plans, psum_fn=None):
+               plans, psum_fn=None, index=None):
     """Matrix-free solve of the reduced camera system S dp = rhs.
 
     S v = Hpp_d v - W Hll_inv W^T v is two segment-sum sweeps over the
     observations (W is never formed); the block-Jacobi preconditioner uses
     the exact diagonal blocks of S (a pose/landmark pair has at most one
     observation, so the correction is one segment-sum of Y E^T).
+
+    On CUDA tensors of one shard (``psum_fn is None``) the CG loop runs as
+    the hand-written kernels of ``ops/cuda_schur.py`` (K4), float32 or
+    float64, and ``index`` is required: the solve's ``schur_index``, which
+    the caller builds once per solve.  Elsewhere ``_pcg_plain``, which is
+    the kernel's plain version, and ``index`` is not read.
 
     With ``psum_fn`` (the landmark-sharded solve of parallel/dist_ba.py)
     Hll_inv, bl, E, obs_pose and obs_lm are sequences with one entry per
@@ -66,7 +75,7 @@ def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
     of obs_pose over the K poses and of obs_lm over the shard's landmarks
     (``ops/segment.py``), which the caller builds once per solve."""
     K = Hpp_d.shape[0]
-    dt = Hpp_d.dtype
+    fused = psum_fn is None and Hpp_d.device.type == "cuda"
     if psum_fn is None:
         shards = [(Hll_inv, bl, E, obs_pose, obs_lm)]
         psum_fn = _only
@@ -74,52 +83,82 @@ def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
         shards = list(zip(Hll_inv, bl, E, obs_pose, obs_lm))
     freeK = (1.0 - fixed)[:, None]
     with TIMERS.stage("ba/pcg_setup"):
-        Ys = [torch.einsum("nab,nbc->nac", Es, Hi[ol])        # (O, 6, 3)
-              for Hi, _, Es, _, ol in shards]
-        rhs = -(bp - psum_fn([segment_sum(K, op, torch.einsum(
-            "nab,nb->na", Y, bls[ol]), pp)
-            for Y, (_, bls, _, op, ol), (pp, _) in zip(Ys, shards, plans)]))
-        rhs = rhs * freeK
-        Dk = Hpp_d - psum_fn([segment_sum(K, op, torch.einsum(
-            "nab,ncb->nac", Y, Es), pp)
-            for Y, (_, _, Es, op, _), (pp, _) in zip(Ys, shards, plans)])
-        eye6 = torch.eye(6, dtype=dt, device=Hpp_d.device)
-        Dk = Dk * freeK[..., None] + eye6[None] * fixed[:, None, None]
-        Minv = inv_nan(Dk)
-
-    def u2_part(v, Hi, Es, op, ol, pp, lp):
-        v = v.to(Es.device)
-        tv = segment_sum(Hi.shape[0], ol,
-                         torch.einsum("nab,na->nb", Es, v[op]), lp)
-        z = torch.einsum("mab,mb->ma", Hi, tv)
-        return segment_sum(K, op, torch.einsum("nab,nb->na", Es, z[ol]), pp)
-
-    def matvec(v):
-        v = v * freeK
-        u = torch.einsum("kab,kb->ka", Hpp_d, v)
-        u2 = psum_fn([u2_part(v, Hi, Es, op, ol, pp, lp)
-                      for (Hi, _, Es, op, ol), (pp, lp) in zip(shards, plans)])
-        return (u - u2) * freeK
+        rhs, Minv = _pcg_setup(Hpp_d, bp, fixed, shards, plans, psum_fn)
+        if fused:
+            if index is None:
+                raise ValueError("_schur_pcg: the CUDA route takes the "
+                                 "solve's schur_index")
+            E_planes = cuda_schur.landmark_planes(E, index)
 
     with TIMERS.stage("ba/pcg_loop"):
         TIMERS.count("ba/cg_iters", n_cg)
-        x = torch.zeros((K, 6), dtype=dt, device=Hpp_d.device)
-        r = rhs
+        if fused:
+            return cuda_schur.schur_pcg(Hpp_d, Hll_inv, E_planes, Minv, rhs,
+                                        fixed, index, n_cg)
+        return _pcg_plain(lambda v: _schur_matvec(v, Hpp_d, freeK, shards,
+                                                  plans, psum_fn),
+                          Minv, rhs, n_cg)
+
+
+def _pcg_setup(Hpp_d, bp, fixed, shards, plans, psum_fn):
+    """(rhs, Minv) of ``_schur_pcg``: the reduced right-hand side and the
+    inverse diagonal blocks of S, identity at the fixed poses."""
+    K = Hpp_d.shape[0]
+    freeK = (1.0 - fixed)[:, None]
+    Ys = [torch.einsum("nab,nbc->nac", Es, Hi[ol])            # (O, 6, 3)
+          for Hi, _, Es, _, ol in shards]
+    rhs = -(bp - psum_fn([segment_sum(K, op, torch.einsum(
+        "nab,nb->na", Y, bls[ol]), pp)
+        for Y, (_, bls, _, op, ol), (pp, _) in zip(Ys, shards, plans)]))
+    rhs = rhs * freeK
+    Dk = Hpp_d - psum_fn([segment_sum(K, op, torch.einsum(
+        "nab,ncb->nac", Y, Es), pp)
+        for Y, (_, _, Es, op, _), (pp, _) in zip(Ys, shards, plans)])
+    eye6 = torch.eye(6, dtype=Hpp_d.dtype, device=Hpp_d.device)
+    Dk = Dk * freeK[..., None] + eye6[None] * fixed[:, None, None]
+    return rhs, inv_nan(Dk)
+
+
+def _schur_matvec(v, Hpp_d, freeK, shards, plans, psum_fn):
+    """S v of ``_schur_pcg``'s plain loop: freeK (Hpp_d w - u2) with
+    w = freeK v and u2 = W Hll_inv W^T w as two segment-sum sweeps per
+    shard, reduced over the shards by ``psum_fn``."""
+    K = Hpp_d.shape[0]
+
+    def u2_part(w, Hi, Es, op, ol, pp, lp):
+        w = w.to(Es.device)
+        tv = segment_sum(Hi.shape[0], ol,
+                         torch.einsum("nab,na->nb", Es, w[op]), lp)
+        z = torch.einsum("mab,mb->ma", Hi, tv)
+        return segment_sum(K, op, torch.einsum("nab,nb->na", Es, z[ol]), pp)
+
+    w = v * freeK
+    u = torch.einsum("kab,kb->ka", Hpp_d, w)
+    u2 = psum_fn([u2_part(w, Hi, Es, op, ol, pp, lp)
+                  for (Hi, _, Es, op, ol), (pp, lp) in zip(shards, plans)])
+    return (u - u2) * freeK
+
+
+def _pcg_plain(matvec, Minv, rhs, n_cg):
+    """n_cg block-Jacobi PCG iterations on matvec(x) = rhs from x = 0."""
+    dt, dev = rhs.dtype, rhs.device
+    x = torch.zeros(rhs.shape, dtype=dt, device=dev)
+    r = rhs
+    z = torch.einsum("kab,kb->ka", Minv, r)
+    p = z
+    rz = torch.sum(r * z)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    for _ in range(n_cg):
+        Ap = matvec(p)
+        denom = torch.sum(p * Ap)
+        alpha = torch.where(torch.abs(denom) > 1e-20, rz / denom, zero)
+        x = x + alpha * p
+        r = r - alpha * Ap
         z = torch.einsum("kab,kb->ka", Minv, r)
-        p = z
-        rz = torch.sum(r * z)
-        zero = torch.zeros((), dtype=dt, device=Hpp_d.device)
-        for _ in range(n_cg):
-            Ap = matvec(p)
-            denom = torch.sum(p * Ap)
-            alpha = torch.where(torch.abs(denom) > 1e-20, rz / denom, zero)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            z = torch.einsum("kab,kb->ka", Minv, r)
-            rz_new = torch.sum(r * z)
-            beta = torch.where(torch.abs(rz) > 1e-20, rz_new / rz, zero)
-            p = z + beta * p
-            rz = rz_new
+        rz_new = torch.sum(r * z)
+        beta = torch.where(torch.abs(rz) > 1e-20, rz_new / rz, zero)
+        p = z + beta * p
+        rz = rz_new
     return x
 
 
@@ -164,6 +203,11 @@ def bundle_adjust(project_fn, project_jac_fn,
             lm_plan = segment_plan(M, obs_lm)
             cell_plan = (segment_plan(K * M, cell) if assembly == "dense"
                          else None)
+            # The PCG kernels' index arrays, once per solve; the masked
+            # observations (weight 0, so E = 0) stay out of their ranges.
+            pcg_index = (cuda_schur.schur_index(K, M, obs_pose, obs_lm,
+                                                pose_plan, lm_plan, obs_mask)
+                         if assembly == "pcg" and dev.type == "cuda" else None)
 
             def huber_rho(chi2):
                 r = torch.sqrt(torch.clamp(chi2, min=1e-12))
@@ -230,7 +274,8 @@ def bundle_adjust(project_fn, project_jac_fn,
                     else:
                         dp = _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose,
                                         obs_lm, fixed, n_cg,
-                                        [(pose_plan, lm_plan)])
+                                        [(pose_plan, lm_plan)],
+                                        index=pcg_index)
 
                 with TIMERS.stage("ba/update"):
                     Wtdp = segment_sum(M, obs_lm, torch.einsum(

@@ -19,7 +19,9 @@ from orb_slam3_study_kr_tpu.solvers import optimize_pose as j_optimize_pose
 from orb_slam3_study_kr_tpu_torch.cameras import pinhole as tpinhole
 from orb_slam3_study_kr_tpu_torch.cameras import twoview as ttwoview
 from orb_slam3_study_kr_tpu_torch.ops import klt as tklt
+from orb_slam3_study_kr_tpu_torch.ops import cuda_schur
 from orb_slam3_study_kr_tpu_torch.ops import orb as torb
+from orb_slam3_study_kr_tpu_torch.solvers import local_ba as tlocal_ba
 from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust as t_bundle_adjust
 from orb_slam3_study_kr_tpu_torch.solvers import optimize_pose as t_optimize_pose
 
@@ -200,3 +202,134 @@ def test_reconstruct_two_views_generator_draws():
                                          generator=g)
     assert bool(out["success"])
     np.testing.assert_allclose(out["R21"].numpy(), R, atol=5e-3)
+
+
+def _schur_graph(seed, K=7, M=50):
+    """A random reduced camera system in float64: poses 0-1 fixed (their E
+    rows left nonzero, so that only the masking cuts them out), pose K - 1
+    unobserved, landmark 0 unobserved, landmark 1 seen once, the rest by 2-5
+    poses; observations in a shuffled order.
+    Returns (Hpp_d, Hll_inv, E, obs_pose, obs_lm, fixed, S) with S the
+    dense (6K, 6K) free-pose Schur complement built from W (K, M, 6, 3)."""
+    rng = np.random.default_rng(seed)
+    obs = [(0 if m == 1 else k, m) for m in range(1, M)
+           for k in rng.choice(K - 1, size=1 if m == 1 else rng.integers(2, 6),
+                               replace=False)]
+    obs = np.asarray(obs)[rng.permutation(len(obs))]
+    op, ol = torch.as_tensor(obs[:, 0]), torch.as_tensor(obs[:, 1])
+    fixed = torch.zeros(K, dtype=torch.float64)
+    fixed[:2] = 1
+    g = torch.Generator().manual_seed(seed)
+    E = torch.randn(len(obs), 6, 3, generator=g, dtype=torch.float64)
+    A = torch.randn(M, 3, 3, generator=g, dtype=torch.float64)
+    Hll_inv = torch.linalg.inv(A @ A.transpose(1, 2) + torch.eye(3))
+    B = torch.randn(K, 6, 6, generator=g, dtype=torch.float64)
+    Hpp_d = B @ B.transpose(1, 2) + torch.eye(6)
+    W = torch.zeros(K, M, 6, 3, dtype=torch.float64)
+    W[op, ol] = E
+    S = torch.block_diag(*Hpp_d) - torch.einsum(
+        "kmab,mbc,lmdc->kald", W, Hll_inv, W).reshape(6 * K, 6 * K)
+    free = (1 - fixed).repeat_interleave(6)
+    return Hpp_d, Hll_inv, E, op, ol, fixed, S * free[:, None] * free[None]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_schur_matvec_matches_dense_schur_complement(seed):
+    """The PCG loop's plain matvec (two segment-sum sweeps, W never formed)
+    equals S v with S built densely from W, fixed poses cut out; and so
+    does the CUDA kernel's plain twin, computed from the kernel's index
+    arrays and landmark-sorted E planes.  Float64: 1e-10 relative."""
+    Hpp_d, Hll_inv, E, op, ol, fixed, S = _schur_graph(seed)
+    K, M = Hpp_d.shape[0], Hll_inv.shape[0]
+    v = torch.randn(K, 6, generator=torch.Generator().manual_seed(9),
+                    dtype=torch.float64)
+    ref = (S @ v.reshape(-1)).reshape(K, 6)
+    tol = 1e-10 * float(ref.abs().max())
+    got = tlocal_ba._schur_matvec(v, Hpp_d, (1 - fixed)[:, None],
+                                  [(Hll_inv, None, E, op, ol)],
+                                  [(None, None)], tlocal_ba._only)
+    assert float((got - ref).abs().max()) <= tol
+    idx = cuda_schur.schur_index(K, M, op, ol)
+    twin = cuda_schur.schur_matvec_plain(
+        v, Hpp_d, Hll_inv, cuda_schur.landmark_planes(E, idx), fixed, idx)
+    assert float((twin - ref).abs().max()) <= tol
+
+
+def test_schur_index_describes_the_observation_graph():
+    """The kernel's once-per-solve index arrays, built in plain torch,
+    describe the graph of (obs_pose, obs_lm): landmark-sorted positions
+    with each landmark's run, their poses, and pose by pose the positions
+    of the pose's observations, with the segment plans' stable orders."""
+    _, _, _, op, ol, _, _ = _schur_graph(0)
+    K, M, O = 7, 50, op.numel()
+    idx = cuda_schur.schur_index(K, M, op, ol)
+    assert idx.lm_off.dtype == idx.op_lm.dtype == torch.int32
+    assert idx.pose_pos.dtype == idx.pose_off.dtype == torch.int32
+    lm_off, pose_off = idx.lm_off.long(), idx.pose_off.long()
+    assert lm_off[0] == 0 and lm_off[-1] == O and bool((lm_off.diff() >= 0).all())
+    assert pose_off[0] == 0 and pose_off[-1] == O
+    np.testing.assert_array_equal(np.sort(idx.lm_perm.numpy()), np.arange(O))
+    np.testing.assert_array_equal(np.sort(idx.pose_pos.numpy()), np.arange(O))
+    lm_of = torch.repeat_interleave(torch.arange(M), lm_off.diff())
+    pose_of = torch.repeat_interleave(torch.arange(K), pose_off.diff())
+    # Position q holds observation lm_perm[q]: its landmark and its pose.
+    np.testing.assert_array_equal(ol[idx.lm_perm].numpy(), lm_of.numpy())
+    np.testing.assert_array_equal(op[idx.lm_perm].numpy(), idx.op_lm.numpy())
+    # Within a landmark, observations keep their input order (stable).
+    assert bool((idx.lm_perm.diff()[lm_of[1:] == lm_of[:-1]] > 0).all())
+    # Pose by pose: each listed position is one of the pose's observations,
+    # in input order, and every observation is listed once.
+    pos_obs = idx.lm_perm[idx.pose_pos.long()]
+    np.testing.assert_array_equal(op[pos_obs].numpy(), pose_of.numpy())
+    assert bool((pos_obs.diff()[pose_of[1:] == pose_of[:-1]] > 0).all())
+    assert int(pose_off[K] - pose_off[K - 1]) == 0          # unobserved pose
+    assert int(lm_off[1] - lm_off[0]) == 0                  # unobserved landmark
+    assert int(lm_off[2] - lm_off[1]) == 1                  # seen once
+    # The segment plans' sorts, where given, give the same arrays.
+    from orb_slam3_study_kr_tpu_torch.ops.segment import SegmentPlan
+    again = cuda_schur.schur_index(K, M, op, ol, SegmentPlan(K, op),
+                                   SegmentPlan(M, ol))
+    for a, b in zip(idx, again):
+        assert torch.equal(a, b)
+
+
+def test_schur_index_keeps_masked_observations_out_of_the_ranges():
+    """Masked observations, the padding of a bucketed map (pose 0,
+    landmark 0, weight 0), sit in a tail of both orders that no range
+    covers: with the padding at the end the live part equals the index of
+    the unpadded graph, and the kernel's plain twin reads none of it (NaN
+    E blocks there leave S v as the dense S without the padding gives)."""
+    Hpp_d, Hll_inv, E, op, ol, fixed, S = _schur_graph(1)
+    K, M, O = Hpp_d.shape[0], Hll_inv.shape[0], op.numel()
+    pad = 37
+    op_p = torch.cat([op, torch.zeros(pad, dtype=op.dtype)])
+    ol_p = torch.cat([ol, torch.zeros(pad, dtype=ol.dtype)])
+    E_p = torch.cat([E, torch.full((pad, 6, 3), float("nan"),
+                                   dtype=E.dtype)])
+    mask = torch.cat([torch.ones(O), torch.zeros(pad)])
+    live = cuda_schur.schur_index(K, M, op, ol)
+    idx = cuda_schur.schur_index(K, M, op_p, ol_p, obs_mask=mask)
+    assert int(idx.lm_off[M]) == int(idx.pose_off[K]) == O
+    for name in ("lm_off", "pose_off"):
+        assert torch.equal(getattr(idx, name), getattr(live, name))
+    for name in ("lm_perm", "op_lm", "pose_pos"):
+        assert torch.equal(getattr(idx, name)[:O], getattr(live, name))
+    np.testing.assert_array_equal(np.sort(idx.lm_perm[O:].numpy()),
+                                  np.arange(O, O + pad))
+    np.testing.assert_array_equal(np.sort(idx.pose_pos.numpy()),
+                                  np.arange(O + pad))
+    # Interleaved padding: the same ranges, over the live observations.
+    order = torch.randperm(O + pad, generator=torch.Generator().manual_seed(4))
+    mixed = cuda_schur.schur_index(K, M, op_p[order], ol_p[order],
+                                   obs_mask=mask[order])
+    assert torch.equal(mixed.lm_off, live.lm_off)
+    assert torch.equal(mixed.pose_off, live.pose_off)
+    assert bool((mask[order][mixed.lm_perm[:O]] == 1).all())
+    v = torch.randn(K, 6, generator=torch.Generator().manual_seed(9),
+                    dtype=torch.float64)
+    ref = (S @ v.reshape(-1)).reshape(K, 6)
+    for ix, Es in ((idx, E_p), (mixed, E_p[order])):
+        twin = cuda_schur.schur_matvec_plain(
+            v, Hpp_d, Hll_inv, cuda_schur.landmark_planes(Es, ix), fixed, ix)
+        assert float((twin - ref).abs().max()) <= 1e-10 * float(
+            ref.abs().max())
