@@ -29,7 +29,17 @@ Needs one CUDA card and nvcc.  Phases, one printed line each:
      map's padding (pose 0, landmark 0, mask 0): x bit-identical to the
      live observations' alone, the device time with the padding kept out
      of the kernel's ranges and left in;
-Phases 3-5b also time each kernel three ways: its device time per launch
+  5c. K4 at a state width of 15 (vi_schur_pcg, the full inertial BA's
+     loop) on phase 5b's problem as the loop closer's full inertial BA
+     sees it (the camera as the body, velocities of 1 m/s, the oldest
+     pose frozen, 2,047 intervals of 20 IMU rows at 200 Hz): one LM step
+     through inertial_bundle_adjust(assembly="pcg"), which must launch K4
+     180 times (the kernels JSON's schur_pcg_vi count); on that step's
+     reduced system, the kernel against the plain loop of
+     solvers/inertial_ba (_vi_matvec under local_ba._pcg_plain), both in
+     float32 against the plain loop in float64, the float64 kernel too,
+     two calls bit-identical; its bound from the 15-wide bytes;
+Phases 3-5c also time each kernel three ways: its device time per launch
 (CUDA events around 100 back-to-back launches of the bare kernel on inputs
 prepared once, queued behind a device-side sleep so that the host's enqueue
 time stays outside the window), its route time per call (the wrapper as
@@ -161,6 +171,7 @@ at Q = T = 1000, rows and columns).
 """
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -237,6 +248,22 @@ K4_OPS_PER_LM = 2 * 9
 K4_OPS_PER_POSE = 2 * 2 * 36 + 40
 
 
+# K4 at a state width of 15 (phase 5c): per observation and landmark as
+# above; per state D, U and Minv (225 values each), the pose's and the 15
+# values' free flags, an offset and the chain's two neighbours (int32), and
+# 177 values of the (K, 15) vectors (A reads z and p over the pose slice,
+# 12; B reads z and p and writes p and Ap, 60; C reads p, Ap, x and r and
+# writes x, r and z, 105); operations per state: D v, U v, U^T v and Minv r
+# (4 x 225 multiply-adds) and about 100 for the updates.
+K4_VI = 15
+K4_VI_OPS_PER_STATE = 2 * 4 * K4_VI * K4_VI + 100
+
+
+def _k4_vi_bytes(K, M, O, item):
+    return (O * (18 + 2 * 6) * item + O * 2 * 4 + M * (9 * item + 4)
+            + K * ((3 * K4_VI * K4_VI + 1 + K4_VI + 177) * item + 3 * 4))
+
+
 def _k4_bytes(K, M, O, item):
     return (O * (18 + 2 * 6) * item + O * 2 * 4 + M * (9 * item + 4)
             + K * ((2 * 36 + 1 + 14 * 6) * item + 4))
@@ -249,11 +276,12 @@ def _bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _per_call_ms(fn, n=50, repeats=3):
+def _per_call_ms(fn, n=50, repeats=3, warmup=5):
     """Median over `repeats` of the wall time per call of n back-to-back
-    calls ending in a synchronize: what a caller pays, host or device."""
+    calls ending in a synchronize, after `warmup` calls: what a caller
+    pays, host or device."""
     import torch
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
@@ -545,23 +573,19 @@ def phase_k3(dev, img_a, img_b):
     return dict(r, max_abs_err=max_err, N=N, W=W, n_ok=n_ok)
 
 
-def _k4_problem(dev, K=2048, M=153_600, track=8, seed=17, lam=1e-2, pad=0):
-    """One LM step (damping lam) of a mono bundle adjustment at the
-    benchmark cell's shapes: K poses 0.1 m apart along x (the first two
-    fixed), M landmarks 4-10 m ahead, each seen by `track` consecutive
-    poses with 0.5 px noise, observations stored pose by pose as a map
-    stores them.  With pad > 0 the last `pad` observations become padding
-    (pose 0, landmark 0, mask 0), as pipeline/global_ba.py pads a map's O
-    up to a multiple of 8192.  Returns (ba, system, index): ba() runs
-    bundle_adjust(assembly="pcg", n_iters=1) on the problem, the global
-    BA's entry into K4; system is the arguments of its _schur_pcg call but
-    the plans and index the index it passes, float32 on dev."""
-    import functools
+@functools.lru_cache(maxsize=1)
+def _k4_arrays(K=2048, M=153_600, track=8, seed=17):
+    """The host arrays of a mono bundle adjustment at the benchmark cell's
+    shapes: K poses 0.1 m apart along x (the first two fixed), M landmarks
+    4-10 m ahead, each seen by `track` consecutive poses with 0.5 px
+    noise, observations stored pose by pose as a map stores them; the
+    poses' and landmarks' starting values perturbed.  Returns (intrinsics,
+    (R, t, fixed, X, lm_mask, op, ol, uv, level, mask)), built once for
+    phases 5b and 5c."""
     import numpy as np
     import torch
     from orb_slam3_study_kr_tpu_torch.cameras import pinhole
     from orb_slam3_study_kr_tpu_torch.lie.se3 import exp_se3
-    from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust, local_ba
     rng = np.random.default_rng(seed)
     xi = np.zeros((K, 6), np.float32)
     xi[:, 3] = -0.1 * np.arange(K)
@@ -580,15 +604,31 @@ def _k4_problem(dev, K=2048, M=153_600, track=8, seed=17, lam=1e-2, pad=0):
     uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
     level = rng.integers(0, 3, op.size).astype(np.int32)
     mask = np.ones(op.size, np.float32)
-    if pad:
-        op[-pad:], ol[-pad:], uv[-pad:], level[-pad:], mask[-pad:] = 0, 0, 0, 0, 0
     fixed = np.zeros(K, np.float32)
     fixed[:2] = 1
     t_noisy = (t + rng.normal(0, 0.02, t.shape) * (1 - fixed)[:, None])
     X_noisy = X + rng.normal(0, 0.05, X.shape)
-    arrays = (R, t_noisy.astype(np.float32), fixed,
-              X_noisy.astype(np.float32), np.ones(M, np.float32),
-              op.astype(np.int32), ol.astype(np.int32), uv, level, mask)
+    return params, (R, t_noisy.astype(np.float32), fixed,
+                    X_noisy.astype(np.float32), np.ones(M, np.float32),
+                    op.astype(np.int32), ol.astype(np.int32), uv, level, mask)
+
+
+def _k4_problem(dev, lam=1e-2, pad=0):
+    """One LM step (damping lam) of _k4_arrays' bundle adjustment.  With
+    pad > 0 the last `pad` observations become padding (pose 0, landmark
+    0, mask 0), as pipeline/global_ba.py pads a map's O up to a multiple
+    of 8192.  Returns (ba, system, index): ba() runs
+    bundle_adjust(assembly="pcg", n_iters=1) on the problem, the global
+    BA's entry into K4; system is the arguments of its _schur_pcg call but
+    the plans and index the index it passes, float32 on dev."""
+    import torch
+    from orb_slam3_study_kr_tpu_torch.cameras import pinhole
+    from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust, local_ba
+    params, arrays = _k4_arrays()
+    arrays = [a.copy() for a in arrays]
+    if pad:
+        for a in arrays[5:]:          # op, ol, uv, level, mask
+            a[-pad:] = 0
     p = params.to(dev)
     args = [torch.as_tensor(a, device=dev) for a in arrays]
 
@@ -680,7 +720,7 @@ def phase_k4(dev):
     plain_ms = _per_call_ms(lambda: local_ba._pcg_plain(
         lambda v: local_ba._schur_matvec(v, Hpp, freeK, shards, plans,
                                          local_ba._only),
-        Minv, rhs, K4_N_CG), n=2) / K4_N_CG
+        Minv, rhs, K4_N_CG), n=2, warmup=1) / K4_N_CG
     planes_ms = _per_call_ms(lambda: cuda_schur.landmark_planes(E, idx), n=20)
     nbytes = _k4_bytes(K, M, O, 4)
     ops = O * K4_OPS_PER_OBS + M * K4_OPS_PER_LM + K * K4_OPS_PER_POSE
@@ -749,6 +789,158 @@ def _k4_padded(dev, device_ms_per_launch, pad=8191):
                              "observations' alone")
     return dict(pad=pad, live=live, device_ms=res["masked_ms"],
                 device_unmasked_ms=res["unmasked_ms"])
+
+
+def _k4_vi_problem(dev, lam=1e-2):
+    """Phase 5b's bundle adjustment as the full inertial BA's problem: the
+    camera is the body (T_bc = I), every pose a state [phi, p, v, bg, ba]
+    moving at 1 m/s along x, the oldest state's pose frozen (its velocity
+    and biases free, the loop closer's gauge), a chain of K - 1 intervals
+    of 20 IMU rows at 200 Hz (the specific force of that motion against
+    gravity, EuRoC's noise densities) preintegrated at zero bias.  Returns
+    (vi_ba, system, index): vi_ba() runs inertial_bundle_adjust(
+    assembly="pcg", n_iters=1), the full inertial BA's entry into the
+    15-wide K4; system is the arguments of its _vi_schur_pcg call, float32
+    on dev."""
+    import numpy as np
+    import torch
+    from orb_slam3_study_kr_tpu_torch.cameras import pinhole
+    from orb_slam3_study_kr_tpu_torch.imu.preintegration import (
+        ImuCalib, preintegrate_batch_scan)
+    from orb_slam3_study_kr_tpu_torch.solvers import inertial_ba
+    params, (R, t, _, X, lm_mask, op, ol, uv, level, mask) = _k4_arrays()
+    K = R.shape[0]
+    R_wb = np.ascontiguousarray(R.transpose(0, 2, 1))
+    p_wb = -np.einsum("kab,kb->ka", R_wb, t)
+    v = np.tile(np.float32([1.0, 0.0, 0.0]), (K, 1))
+    fixed = np.zeros(K, np.float32)
+    fixed[0] = 1
+    rng = np.random.default_rng(29)
+    n = 20
+    rows = np.zeros((K - 1, n, 7), np.float32)
+    rows[..., 0] = 0.005
+    rows[..., 3] = 9.81
+    rows[..., 1:4] += rng.normal(0, 2e-3 * 200 ** 0.5, (K - 1, n, 3))
+    rows[..., 4:7] += rng.normal(0, 1.7e-4 * 200 ** 0.5, (K - 1, n, 3))
+    calib = ImuCalib.make(device=dev)
+    r = torch.as_tensor(rows, device=dev)
+    pre = preintegrate_batch_scan(
+        r[..., 1:4], r[..., 4:7], r[..., 0],
+        torch.ones((K - 1, n), device=dev),
+        torch.zeros((K - 1, 6), device=dev), calib)
+    pk = params.to(dev)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    args = (T(R_wb), T(p_wb), T(v), torch.zeros((K, 6), device=dev),
+            T(fixed), torch.eye(3, device=dev), torch.zeros(3, device=dev),
+            T(X), T(lm_mask), T(op), T(ol), T(uv), T(level), T(mask),
+            torch.arange(K - 1, device=dev), torch.arange(1, K, device=dev),
+            pre, torch.ones(K - 1, device=dev))
+
+    def vi_ba():
+        return inertial_ba.inertial_bundle_adjust(
+            functools.partial(pinhole.project, pk),
+            functools.partial(pinhole.project_jac, pk), *args, n_iters=1,
+            fixed_vb=torch.zeros(K, device=dev), assembly="pcg",
+            init_lambda=lam)
+
+    got = []
+
+    def record(*a, **kw):
+        got.append(a)
+        return torch.zeros_like(a[4])
+
+    orig = inertial_ba._vi_schur_pcg
+    inertial_ba._vi_schur_pcg = record
+    try:
+        vi_ba()
+    finally:
+        inertial_ba._vi_schur_pcg = orig
+    return vi_ba, got[0][:13], got[0][13]
+
+
+def phase_k4_vi(dev):
+    """5c: K4 at a state width of 15 (cuda_schur.vi_schur_pcg), the full
+    inertial BA's loop, at the cell's shapes."""
+    import torch
+    from orb_slam3_study_kr_tpu_torch.ops import cuda_schur
+    from orb_slam3_study_kr_tpu_torch.solvers import inertial_ba, local_ba
+    from orb_slam3_study_kr_tpu_torch.utils.profiling import device_ms_per_launch
+    vi_ba, a32, idx = _k4_vi_problem(dev)
+    # The full inertial BA's entry, unpatched: one LM step through K4.
+    with _Launches() as entry:
+        out = vi_ba()
+    launches = entry.counts["schur_pcg"]
+    if launches != 3 * K4_N_CG or not all(bool(torch.isfinite(o).all())
+                                          for o in out[:5]):
+        raise AssertionError(f"K4 15-wide: inertial_bundle_adjust("
+                             f"assembly='pcg', n_iters=1) launched "
+                             f"{launches} kernels, expected {3 * K4_N_CG}")
+    a64 = tuple(t.double() if torch.is_tensor(t) and t.is_floating_point()
+                else t for t in a32)
+    D, U, nxt, Minv, rhs, Hll_inv, E, op, ol, fixed, fd, n_cg, plans = a32
+    K, M, O = D.shape[0], Hll_inv.shape[0], op.numel()
+    if n_cg != K4_N_CG:
+        raise AssertionError(f"K4 15-wide: {n_cg} CG iterations an LM step")
+
+    def fused(a):
+        D, U, nxt, Minv, rhs, Hi, E, op, ol, fixed, fd, _, _ = a
+        return cuda_schur.vi_schur_pcg(
+            D, U, nxt, Hi, cuda_schur.landmark_planes(E, idx), Minv, rhs,
+            fixed, fd, idx, K4_N_CG)
+
+    def plain(a):
+        D, U, nxt, Minv, rhs, Hi, E, op, ol, _, fd, _, plans = a
+        shards = [(Hi, None, E, op, ol)]
+        return local_ba._pcg_plain(
+            lambda v: inertial_ba._vi_matvec(v, D, U, nxt, fd, shards, plans),
+            Minv, rhs, K4_N_CG)
+
+    n0 = cuda_schur.schur_pcg.launches
+    x_k, x_k2 = fused(a32), fused(a32)
+    torch.cuda.synchronize()
+    if cuda_schur.schur_pcg.launches - n0 != 2 * 3 * K4_N_CG:
+        raise AssertionError("K4 15-wide: launches of two calls")
+    if not torch.equal(x_k, x_k2):
+        raise AssertionError("K4 15-wide: two calls on one system differ")
+    x_p, x64, x64_k = plain(a32), plain(a64), fused(a64)
+    scale = float(x64.abs().max())
+    err = {k: float((x.double() - x64).abs().max()) / scale
+           for k, x in (("kernel_f32", x_k), ("plain_f32", x_p),
+                        ("kernel_f64", x64_k))}
+    err["kernel_vs_plain_f32"] = float((x_k - x_p).abs().max()) / scale
+    # As phase 5b: the float32 kernel within 4x the plain loop's own
+    # float32 error against float64 (or 1e-5 of the scale), the float64
+    # kernel within float64 rounding.
+    if not (torch.isfinite(x_k).all() and scale > 0
+            and err["kernel_f32"] <= max(4 * err["plain_f32"], 1e-5)
+            and err["kernel_f64"] <= 1e-9):
+        raise AssertionError(f"K4 15-wide against the plain loop: {err}")
+    Ep = cuda_schur.landmark_planes(E, idx)
+    launch, _ = cuda_schur.vi_schur_pcg_call(D, U, nxt, Hll_inv, Ep, Minv,
+                                             rhs, fixed, fd, idx, 2)
+    device_ms = device_ms_per_launch(launch) / 2
+    route_ms = _per_call_ms(lambda: cuda_schur.vi_schur_pcg(
+        D, U, nxt, Hll_inv, Ep, Minv, rhs, fixed, fd, idx, K4_N_CG),
+        n=10) / K4_N_CG
+    plain_ms = _per_call_ms(lambda: plain(a32), n=1, warmup=1) / K4_N_CG
+    nbytes = _k4_vi_bytes(K, M, O, 4)
+    ops = O * K4_OPS_PER_OBS + M * K4_OPS_PER_LM + K * K4_VI_OPS_PER_STATE
+    bound_ms, bound_by = _bound(nbytes, ops)
+    print(f"phase K4 15-wide: inertial_bundle_adjust(assembly='pcg', "
+          f"n_iters=1) at K={K} M={M} O={O} E={K - 1} launched K4 "
+          f"{launches} times; {K4_N_CG} CG iterations: relative to max |x| "
+          f"of the float64 plain loop ({scale:.4g}), kernel "
+          f"{err['kernel_f32']:.3e}, plain {err['plain_f32']:.3e} (float32), "
+          f"kernel {err['kernel_f64']:.3e} (float64), kernel against plain "
+          f"{err['kernel_vs_plain_f32']:.3e}; two calls bit-identical; per "
+          f"CG iteration: device {device_ms:.5f} ms, route {route_ms:.5f} "
+          f"ms, plain {plain_ms:.5f} ms; bound {bound_ms:.5f} ms by "
+          f"{bound_by} (max({nbytes} B / 3.35 TB/s, {ops} op / 67 T/s)), "
+          f"device time at {bound_ms / device_ms:.3f} of the bound")
+    return dict(max_abs_err=err["kernel_vs_plain_f32"] * scale, err=err,
+                device_ms=device_ms, route_ms=route_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+                K=K, M=M, O=O, launches=launches)
 
 
 class _Launches:
@@ -2777,6 +2969,7 @@ def main(argv=None):
     out["k2"] = run("k2", phase_k2, dev, img_a, img_b)
     out["k3"] = run("k3", phase_k3, dev, img_a, img_b)
     out["k4"] = run("k4", phase_k4, dev)
+    out["k4_vi"] = run("k4_vi", phase_k4_vi, dev)
     recorder = _Recorder()
     with recorder.recording("local_ba"):
         loop_off = run("loop_off", phase_loop_off, dev, scen["loop_off"])
@@ -2837,12 +3030,17 @@ def main(argv=None):
     # one LM step through bundle_adjust, the global BA's entry (180).
     launches["schur_pcg"] = out["k4"]["launches"] + sum(
         out[p]["launches"].get("schur_pcg", 0) for p in paths)
+    # Its 15-wide instance runs in the loop closer's full inertial BA, on
+    # none of them either: phase 5c's one LM step through
+    # inertial_bundle_adjust(assembly="pcg") (180).
+    launches["schur_pcg_vi"] = out["k4_vi"]["launches"]
     kernels = []
     for name, key, src, replaces in (
             ("fast_nms_blur", "k1", "fast_nms_blur.cu", "pallas_fast.py:122"),
             ("gated_nn", "k2", "gated_nn.cu", "pallas_matching.py:144"),
             ("hamming_nn", "k3", "hamming_nn.cu", "pallas_matching.py:210"),
-            ("schur_pcg", "k4", "schur_pcg.cu", None)):
+            ("schur_pcg", "k4", "schur_pcg.cu", None),
+            ("schur_pcg_vi", "k4_vi", "schur_pcg.cu", None)):
         r = out[key]
         kernels.append(dict(
             name=name, route="cuda", source=f"{PKG}/csrc/{src}",

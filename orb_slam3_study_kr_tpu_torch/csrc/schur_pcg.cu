@@ -28,6 +28,18 @@
 // fma from the same operands (so the same bits), and B stores it for C
 // and for the next iteration (two buffers, alternating).
 //
+// The full inertial BA (solvers/inertial_ba.py, the PCG assembly; its
+// reference is the dense jnp solve of orb_slam3_study_kr_tpu/solvers/
+// inertial_ba.py) runs the same loop on 15-wide states [phi, p, v, bg,
+// ba]: A and C are the same kernels at a state width S = 15 (A reads the
+// pose slice), and B is pose_sweep_vi, which adds each state's 15x15
+// diagonal block D and its chain neighbours' couplings U (a keyframe's
+// inertial edges reach only the previous and the next keyframe).  The
+// 6-wide instances compile to the code they had before S was a template
+// parameter.  An inertial iteration moves 171 MB at the long map's size
+// (the visual bytes plus 15-wide vectors and D, U and Minv at 225 values
+// a state; portbench/vipcg.py), 0.051 ms at 3.35 TB/s.
+//
 // Bound on the H100: bytes.  An iteration reads E once (18 floats an
 // observation, 88.5 MB), Hll_inv (5.5 MB), the landmark offsets and the
 // observations' poses (5.5 MB), the pose-ordered positions (4.9 MB), and
@@ -166,8 +178,9 @@ __device__ __forceinline__ void load_obs(T (&e)[18], const T* __restrict__ Ep,
   for (int j = 0; j < 18; ++j) e[j] = __ldcs(Ep + (size_t)j * O + n);
 }
 
-// t += E^T v for an observation of pose k, v = freeK (z + beta p_prev).
-template <typename T>
+// t += E^T v for an observation of pose k, v = freeK (z + beta p_prev)
+// over the pose slice (the first 6) of a state S values wide.
+template <typename T, int S>
 __device__ __forceinline__ void accumulate(T (&t)[3], const T (&e)[18],
                                            int k, const T* __restrict__ freeK,
                                            const T* __restrict__ z,
@@ -176,8 +189,8 @@ __device__ __forceinline__ void accumulate(T (&t)[3], const T (&e)[18],
   const T fr = __ldg(freeK + k);
 #pragma unroll
   for (int a = 0; a < 6; ++a) {
-    const T v = direction(__ldg(z + k * 6 + a), beta,
-                          __ldg(p_prev + k * 6 + a)) * fr;
+    const T v = direction(__ldg(z + k * S + a), beta,
+                          __ldg(p_prev + k * S + a)) * fr;
 #pragma unroll
     for (int b = 0; b < 3; ++b) t[b] += e[a * 3 + b] * v;
   }
@@ -193,7 +206,7 @@ __device__ __forceinline__ void write_y(T* __restrict__ y, const T (&e)[18],
   store_row(y + (size_t)n * YS, row);
 }
 
-template <typename T>
+template <typename T, int S>
 __global__ void __launch_bounds__(A_THREADS) landmark_sweep(
     const T* __restrict__ Ep, const int* __restrict__ lm_off,
     const int* __restrict__ op_lm, const T* __restrict__ Hll_inv,
@@ -213,12 +226,12 @@ __global__ void __launch_bounds__(A_THREADS) landmark_sweep(
   const bool mine = n < end;
   if (mine) {
     load_obs(e, Ep, n, O);
-    accumulate(t, e, __ldcs(op_lm + n), freeK, z, p_prev, beta);
+    accumulate<T, S>(t, e, __ldcs(op_lm + n), freeK, z, p_prev, beta);
   }
   for (int q = n + G; q < end; q += G) {    // tracks longer than G
     T f[18];
     load_obs(f, Ep, q, O);
-    accumulate(t, f, __ldcs(op_lm + q), freeK, z, p_prev, beta);
+    accumulate<T, S>(t, f, __ldcs(op_lm + q), freeK, z, p_prev, beta);
   }
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1)
@@ -287,7 +300,93 @@ __global__ void __launch_bounds__(B_THREADS) pose_sweep(
   }
 }
 
+// B of the inertial BA's reduced system, one block per state k of VS = 15
+// values [phi, p, v, bg, ba]: u2_k as in pose_sweep, then row a of
+//   Ap_k = freeD_k (D_k v_k + U_k v_nxt(k) + U_prv(k)^T v_prv(k) - P^T u2_k)
+// on thread a < VS, with v = freeD (z + beta p_prev) formed from the same
+// operands as the neighbours' own blocks form it (so the same bits), P^T
+// placing u2 on the pose slice.  D_k holds the visual Hpp, the inertial
+// blocks and the damping; U_k couples state k to the next state of the
+// chain (nxt[k] < 0: none).  Then p . Ap as pose_sweep has it.
+constexpr int VS = 15;
+
 template <typename T>
+__global__ void __launch_bounds__(B_THREADS) pose_sweep_vi(
+    const T* __restrict__ y, const int* __restrict__ pose_pos,
+    const int* __restrict__ pose_off, const T* __restrict__ D,
+    const T* __restrict__ U, const int* __restrict__ nxt,
+    const int* __restrict__ prv, const T* __restrict__ freeD,
+    const T* __restrict__ z, const T* __restrict__ p_prev,
+    T* __restrict__ p_cur, T* __restrict__ Ap, T* part, T* scal,
+    unsigned* counter, int K) {
+  __shared__ T su2[6];
+  __shared__ T sv[3][VS];
+  __shared__ T sprod[VS];
+  const int k = blockIdx.x;
+  const int tid = threadIdx.x;
+  T u2[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+  const int end = __ldg(pose_off + k + 1);
+  for (int q = __ldg(pose_off + k) + tid; q < end; q += B_THREADS)
+    add_row(u2, y + (size_t)__ldcs(pose_pos + q) * YS);
+  block_sum<T, 6, B_THREADS>(u2);
+  if (tid == 0)
+#pragma unroll
+    for (int a = 0; a < 6; ++a) su2[a] = u2[a];
+  const T beta = scal[1];
+  const int kn = __ldg(nxt + k), kp = __ldg(prv + k);
+  T p = T(0);
+  if (tid < VS) {
+    p = direction(z[k * VS + tid], beta, p_prev[k * VS + tid]);
+    p_cur[k * VS + tid] = p;
+    sv[0][tid] = p * freeD[k * VS + tid];
+    sv[1][tid] = kn < 0 ? T(0)
+        : direction(z[kn * VS + tid], beta, p_prev[kn * VS + tid])
+              * freeD[kn * VS + tid];
+    sv[2][tid] = kp < 0 ? T(0)
+        : direction(z[kp * VS + tid], beta, p_prev[kp * VS + tid])
+              * freeD[kp * VS + tid];
+  }
+  __syncthreads();
+  if (tid < VS) {
+    const int a = tid;
+    const T* Dk = D + (size_t)k * VS * VS + a * VS;
+    T u = T(0);
+#pragma unroll
+    for (int b = 0; b < VS; ++b) u += __ldg(Dk + b) * sv[0][b];
+    if (kn >= 0) {
+      const T* Uk = U + (size_t)k * VS * VS + a * VS;
+#pragma unroll
+      for (int b = 0; b < VS; ++b) u += __ldg(Uk + b) * sv[1][b];
+    }
+    if (kp >= 0) {
+      const T* Up = U + (size_t)kp * VS * VS + a;
+#pragma unroll
+      for (int b = 0; b < VS; ++b) u += __ldg(Up + b * VS) * sv[2][b];
+    }
+    if (a < 6) u -= su2[a];
+    const T ap = u * freeD[k * VS + a];
+    Ap[k * VS + a] = ap;
+    sprod[a] = p * ap;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    T d = T(0);
+    for (int a = 0; a < VS; ++a) d += sprod[a];
+    part[k] = d;
+  }
+  if (!last_block(counter)) return;
+  const int run = (K + B_THREADS - 1) / B_THREADS;
+  T s[1] = {T(0)};
+  const int hi = min(K, (tid + 1) * run);
+  for (int i = tid * run; i < hi; ++i) s[0] += __ldcg(part + i);
+  block_sum<T, 1, B_THREADS>(s);
+  if (tid == 0) {
+    scal[0] = guarded_div(scal[2], s[0]);
+    *counter = 0u;
+  }
+}
+
+template <typename T, int S>
 __global__ void __launch_bounds__(C_THREADS) cg_update(
     const T* __restrict__ Minv, const T* __restrict__ p_cur,
     const T* __restrict__ Ap, T* __restrict__ x, T* __restrict__ r,
@@ -296,19 +395,19 @@ __global__ void __launch_bounds__(C_THREADS) cg_update(
   const T alpha = scal[0];
   T rz[1] = {T(0)};
   if (k < K) {
-    T rr[6];
+    T rr[S];
 #pragma unroll
-    for (int a = 0; a < 6; ++a) {
-      x[k * 6 + a] += alpha * p_cur[k * 6 + a];
-      rr[a] = r[k * 6 + a] - alpha * Ap[k * 6 + a];
-      r[k * 6 + a] = rr[a];
+    for (int a = 0; a < S; ++a) {
+      x[k * S + a] += alpha * p_cur[k * S + a];
+      rr[a] = r[k * S + a] - alpha * Ap[k * S + a];
+      r[k * S + a] = rr[a];
     }
 #pragma unroll
-    for (int a = 0; a < 6; ++a) {
+    for (int a = 0; a < S; ++a) {
       T za = T(0);
 #pragma unroll
-      for (int b = 0; b < 6; ++b) za += Minv[k * 36 + a * 6 + b] * rr[b];
-      z[k * 6 + a] = za;
+      for (int b = 0; b < S; ++b) za += Minv[k * S * S + a * S + b] * rr[b];
+      z[k * S + a] = za;
       rz[0] += rr[a] * za;
     }
   }
@@ -337,12 +436,41 @@ int schur_pcg(const T* Ep, const int* lm_off, const int* op_lm,
   for (int i = 0; i < n_cg; ++i) {
     const T* p_prev = (i & 1) ? pb : pa;
     T* p_cur = (i & 1) ? pa : pb;
-    landmark_sweep<T><<<grid_a, A_THREADS, 0, stream>>>(
+    landmark_sweep<T, 6><<<grid_a, A_THREADS, 0, stream>>>(
         Ep, lm_off, op_lm, Hll_inv, freeK, z, p_prev, scal, y, M, O);
     pose_sweep<T><<<K, B_THREADS, 0, stream>>>(
         y, pose_pos, pose_off, Hpp, freeK, z, p_prev, p_cur, Ap, part, scal,
         counters, K);
-    cg_update<T><<<grid_c, C_THREADS, 0, stream>>>(
+    cg_update<T, 6><<<grid_c, C_THREADS, 0, stream>>>(
+        Minv, p_cur, Ap, x, r, z, part, scal, counters + 1, K);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// The inertial BA's loop: A over the pose slice of 15-wide states, B as
+// pose_sweep_vi, C on 15-wide states and 15x15 Minv blocks.
+template <typename T>
+int vi_schur_pcg(const T* Ep, const int* lm_off, const int* op_lm,
+                 const T* Hll_inv, const int* pose_pos, const int* pose_off,
+                 const T* D, const T* U, const int* nxt, const int* prv,
+                 const T* freeK, const T* freeD, const T* Minv, T* x, T* r,
+                 T* z, T* pa, T* pb, T* Ap, T* y, T* part, T* scal,
+                 unsigned* counters, int K, int M, int O, int n_cg,
+                 cudaStream_t stream) {
+  if (K < 1 || M < 1 || O < 0 || n_cg < 0) return (int)cudaErrorInvalidValue;
+  const int grid_a = (M + LM_PER_BLOCK - 1) / LM_PER_BLOCK;
+  const int grid_c = (K + C_THREADS - 1) / C_THREADS;
+  for (int i = 0; i < n_cg; ++i) {
+    const T* p_prev = (i & 1) ? pb : pa;
+    T* p_cur = (i & 1) ? pa : pb;
+    landmark_sweep<T, VS><<<grid_a, A_THREADS, 0, stream>>>(
+        Ep, lm_off, op_lm, Hll_inv, freeK, z, p_prev, scal, y, M, O);
+    pose_sweep_vi<T><<<K, B_THREADS, 0, stream>>>(
+        y, pose_pos, pose_off, D, U, nxt, prv, freeD, z, p_prev, p_cur, Ap,
+        part, scal, counters, K);
+    cg_update<T, VS><<<grid_c, C_THREADS, 0, stream>>>(
         Minv, p_cur, Ap, x, r, z, part, scal, counters + 1, K);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -384,4 +512,42 @@ extern "C" int schur_pcg_f64(const double* Ep, const int* lm_off,
                            Hpp, freeK, Minv, x, r, z, pa, pb, Ap, y, part,
                            scal, counters, K, M, O, n_cg,
                            (cudaStream_t)stream);
+}
+
+// The inertial BA's loop over 15-wide states [phi, p, v, bg, ba]: as
+// schur_pcg_f32 with D and U (K, 15, 15) in place of Hpp, nxt and prv (K)
+// the chain's neighbours (-1: none), freeK (K) the poses' and freeD (K,
+// 15) every value's free flag, Minv (K, 15, 15), x, r, z, pa, pb, Ap (K,
+// 15).
+extern "C" int vi_schur_pcg_f32(const float* Ep, const int* lm_off,
+                                const int* op_lm, const float* Hll_inv,
+                                const int* pose_pos, const int* pose_off,
+                                const float* D, const float* U, const int* nxt,
+                                const int* prv, const float* freeK,
+                                const float* freeD, const float* Minv,
+                                float* x, float* r, float* z, float* pa,
+                                float* pb, float* Ap, float* y, float* part,
+                                float* scal, unsigned* counters, int K, int M,
+                                int O, int n_cg, void* stream) {
+  return vi_schur_pcg<float>(Ep, lm_off, op_lm, Hll_inv, pose_pos, pose_off,
+                             D, U, nxt, prv, freeK, freeD, Minv, x, r, z, pa,
+                             pb, Ap, y, part, scal, counters, K, M, O, n_cg,
+                             (cudaStream_t)stream);
+}
+
+extern "C" int vi_schur_pcg_f64(const double* Ep, const int* lm_off,
+                                const int* op_lm, const double* Hll_inv,
+                                const int* pose_pos, const int* pose_off,
+                                const double* D, const double* U,
+                                const int* nxt, const int* prv,
+                                const double* freeK, const double* freeD,
+                                const double* Minv, double* x, double* r,
+                                double* z, double* pa, double* pb, double* Ap,
+                                double* y, double* part, double* scal,
+                                unsigned* counters, int K, int M, int O,
+                                int n_cg, void* stream) {
+  return vi_schur_pcg<double>(Ep, lm_off, op_lm, Hll_inv, pose_pos, pose_off,
+                              D, U, nxt, prv, freeK, freeD, Minv, x, r, z, pa,
+                              pb, Ap, y, part, scal, counters, K, M, O, n_cg,
+                              (cudaStream_t)stream);
 }

@@ -128,6 +128,14 @@ def right_jacobian_inv_so3(w):
     return _eye_like(W) + 0.5 * W + cot_term[..., None, None] * W2
 
 
+def orthonormalize(R):
+    """One Newton-Schulz step toward the nearest rotation, R (3 I - R^T R)
+    / 2: for a rotation off by rounding (a product of rotations) it squares
+    the error.  Unlike ``normalize_rotation`` it takes no SVD, which on the
+    card waits for the device."""
+    return 0.5 * R @ (3.0 * _eye_like(R) - R.transpose(-1, -2) @ R)
+
+
 def normalize_rotation(R):
     """Project (..., 3, 3) onto SO(3) via SVD, flipping the last singular
     direction of a reflection."""

@@ -84,6 +84,59 @@ int64_t observations_coo(const int32_t* kf_kp_lm,
   return n;
 }
 
+// The global BA's observation rows in one pass: every binding of the given
+// keyframes to a landmark with lm_index >= 0, in keyframe-then-slot order,
+// as its keyframe and slot, its position in kf_ids (op), lm_index of its
+// landmark (ol), and the slot's pixel, pyramid level and right coordinate.
+// Writes at most `cap` rows; returns the number of rows found.
+int64_t gather_observations(const int32_t* kf_kp_lm, const float* kf_kp_uv,
+                            const int32_t* kf_kp_level,
+                            const float* kf_kp_ur, int64_t max_kp,
+                            const int32_t* kf_ids, int64_t n_sel,
+                            const int32_t* lm_index, int64_t max_lm,
+                            int64_t cap,
+                            int32_t* out_kf, int32_t* out_kp,
+                            int32_t* out_op, int32_t* out_ol, float* out_uv,
+                            int32_t* out_lev, float* out_ur) {
+  int64_t n = 0;
+  for (int64_t s = 0; s < n_sel; ++s) {
+    const int64_t base = static_cast<int64_t>(kf_ids[s]) * max_kp;
+    const int32_t* r = kf_kp_lm + base;
+    for (int64_t i = 0; i < max_kp; ++i) {
+      int32_t lm = r[i];
+      if (lm < 0 || lm >= max_lm || lm_index[lm] < 0) continue;
+      if (n < cap) {
+        const int64_t j = base + i;
+        out_kf[n] = kf_ids[s];
+        out_kp[n] = static_cast<int32_t>(i);
+        out_op[n] = static_cast<int32_t>(s);
+        out_ol[n] = lm_index[lm];
+        out_uv[2 * n] = kf_kp_uv[2 * j];
+        out_uv[2 * n + 1] = kf_kp_uv[2 * j + 1];
+        out_lev[n] = kf_kp_level[j];
+        out_ur[n] = kf_kp_ur[j];
+      }
+      ++n;
+    }
+  }
+  return n;
+}
+
+// Clear every binding to a landmark marked in `dead` (max_lm) and return
+// how many bindings were cleared.
+int64_t unbind_landmarks(int32_t* kf_kp_lm, int64_t total,
+                         const uint8_t* dead, int64_t max_lm) {
+  int64_t n = 0;
+  for (int64_t i = 0; i < total; ++i) {
+    int32_t lm = kf_kp_lm[i];
+    if (lm >= 0 && lm < max_lm && dead[lm]) {
+      kf_kp_lm[i] = -1;
+      ++n;
+    }
+  }
+  return n;
+}
+
 // Replace every binding of landmark `b` with landmark `a` (MapPoint::Replace
 // core) and return how many bindings changed.
 int64_t replace_landmark(int32_t* kf_kp_lm, int64_t total,

@@ -3,7 +3,8 @@
 The ``csrc/*.cu`` files compile into shared libraries with a plain C
 interface (nvcc, ``sm_90a``), loaded with ctypes, one library per source
 group (``GROUPS``): ``slam_kernels`` holds the tracking kernels K1-K3,
-``schur_pcg`` the global BA's PCG loop (K4), so a global BA builds one
+``schur_pcg`` the global BAs' PCG loops (K4, visual and inertial), so a
+global BA builds one
 small file and never K1-K3.  A group's build runs one nvcc process per
 source, all started together, then one link.  It happens at first use
 into ``csrc/build/`` (git-ignored); the library name carries a hash of the
@@ -109,6 +110,9 @@ def _bind(lib, group):
     else:
         for fn in (lib.schur_pcg_f32, lib.schur_pcg_f64):
             fn.argtypes = [p] * 19 + [i, i, i, i, p]
+            fn.restype = i
+        for fn in (lib.vi_schur_pcg_f32, lib.vi_schur_pcg_f64):
+            fn.argtypes = [p] * 23 + [i, i, i, i, p]
             fn.restype = i
     return lib
 

@@ -13,6 +13,17 @@ ranges), and the E blocks gathered once per LM step into
 landmark-sorted order, as 18 planes of O values (``landmark_planes``).
 ``schur_matvec_plain`` computes the kernel's matvec from those arrays in
 plain torch, landmark-major and then pose-major as the kernel does.
+
+``vi_schur_pcg`` runs the same loop on the inertial BA's reduced system
+(``solvers/inertial_ba``, the PCG assembly): 15-wide states whose pose
+slice takes the visual matvec, with each state's 15x15 diagonal block and
+its coupling to the next keyframe of the temporal chain; the kernels are
+the visual ones instantiated at a state width of 15, and a pose sweep
+that adds the chain's blocks; its plain twin is
+``solvers/inertial_ba._vi_matvec`` under ``local_ba._pcg_plain``.  Both
+loops have a float64 instance: a float64 solve on the card takes it, and
+the checks against the plain loop in float64 hold the kernels to float64
+rounding.
 """
 
 from collections import namedtuple
@@ -195,3 +206,89 @@ def schur_pcg_call(Hpp_d, Hll_inv, E_planes, Minv, rhs, fixed, index, n_cg):
 
 
 schur_pcg.launches = 0
+
+VI = 15      # an inertial state: [phi, p, v, bg, ba]
+
+
+def chain_prev(nxt):
+    """prv (K,) int32 of a chain given nxt (K,) (-1: none): prv[nxt[k]] =
+    k.  No host sync: the states without a next write into a spare slot."""
+    K = nxt.shape[0]
+    prv = torch.full((K + 1,), -1, dtype=torch.int32, device=nxt.device)
+    prv[torch.where(nxt >= 0, nxt, K).long()] = torch.arange(
+        K, dtype=torch.int32, device=nxt.device)
+    return prv[:K]
+
+
+def vi_schur_pcg(D, U, nxt, Hll_inv, E_planes, Minv, rhs, fixed, free_dims,
+                 index, n_cg):
+    """K4 on the inertial BA's reduced system: x (K, 15) after n_cg
+    block-Jacobi PCG iterations on A x = rhs from x = 0, A = freeD (D +
+    the chain's couplings U - P^T W Hll_inv W^T P) freeD, preconditioned by
+    Minv (K, 15, 15).  D and U (K, 15, 15): each state's diagonal block and
+    its coupling to the next state of the chain nxt (K,) int32 (-1: none;
+    a state is the next of at most one); fixed (K,) 1 = frozen pose,
+    free_dims (K, 15) 0 where a value is frozen; the visual arrays as
+    ``schur_pcg`` takes them.  All float32 or all float64 on one CUDA
+    device.  Counts launches in ``schur_pcg.launches``."""
+    launch, x = vi_schur_pcg_call(D, U, nxt, Hll_inv, E_planes, Minv, rhs,
+                                  fixed, free_dims, index, n_cg)
+    launch()
+    return x
+
+
+def vi_schur_pcg_call(D, U, nxt, Hll_inv, E_planes, Minv, rhs, fixed,
+                      free_dims, index, n_cg):
+    """The CUDA half of ``vi_schur_pcg``, as ``schur_pcg_call``."""
+    dev = D.device
+    if dev.type != "cuda":
+        raise ValueError(f"vi_schur_pcg: unsupported device {dev}")
+    dt = D.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"vi_schur_pcg: unsupported dtype {dt}")
+    K, M, O = D.shape[0], Hll_inv.shape[0], E_planes.shape[-1]
+    if K < 1 or M < 1:
+        raise ValueError(f"vi_schur_pcg: empty problem K={K} M={M}")
+    n_cg = int(n_cg)
+    if n_cg < 0:
+        raise ValueError(f"vi_schur_pcg: n_cg={n_cg}")
+    for name, a, shape in (("D", D, (K, VI, VI)), ("U", U, (K, VI, VI)),
+                           ("Hll_inv", Hll_inv, (M, 3, 3)),
+                           ("E_planes", E_planes, (18, O)),
+                           ("Minv", Minv, (K, VI, VI)), ("rhs", rhs, (K, VI)),
+                           ("fixed", fixed, (K,)),
+                           ("free_dims", free_dims, (K, VI))):
+        _check(name, a, dev, shape, dt)
+    _check("nxt", nxt, dev, (K,), torch.int32)
+    for name, shape in (("lm_off", (M + 1,)), ("op_lm", (O,)),
+                        ("pose_pos", (O,)), ("pose_off", (K + 1,))):
+        _check(name, getattr(index, name), dev, shape, torch.int32)
+    ins = tuple(a.contiguous() for a in (
+        E_planes, index.lm_off, index.op_lm, Hll_inv, index.pose_pos,
+        index.pose_off, D, U, nxt, chain_prev(nxt), 1.0 - fixed, free_dims,
+        Minv))
+    x = torch.zeros((K, VI), dtype=dt, device=dev)
+    r = rhs.clone(memory_format=torch.contiguous_format)
+    z = torch.einsum("kab,kb->ka", ins[12], r).contiguous()
+    pa = torch.zeros((K, VI), dtype=dt, device=dev)
+    pb = torch.empty((K, VI), dtype=dt, device=dev)
+    Ap = torch.empty((K, VI), dtype=dt, device=dev)
+    y = torch.empty((O, 8), dtype=dt, device=dev)
+    part = torch.empty(K, dtype=dt, device=dev)
+    zero = torch.zeros(1, dtype=dt, device=dev)
+    scal = torch.cat([zero, zero, torch.sum(r * z).reshape(1)])
+    counters = torch.zeros(2, dtype=torch.int32, device=dev)
+    outs = (x, r, z, pa, pb, Ap, y, part, scal, counters)
+    from orb_slam3_study_kr_tpu_torch.ops import cuda_lib
+
+    lib = cuda_lib.load("schur_pcg")
+    fn = lib.vi_schur_pcg_f32 if dt == torch.float32 else lib.vi_schur_pcg_f64
+    argv = (*[a.data_ptr() for a in ins + outs], K, M, O, n_cg)
+
+    def launch(keep=(ins, outs)):
+        with torch.cuda.device(dev):
+            err = fn(*argv, torch.cuda.current_stream(dev).cuda_stream)
+        cuda_lib.check(err, "vi_schur_pcg")
+        cuda_lib.count_launch(schur_pcg, 3 * n_cg)
+
+    return launch, x

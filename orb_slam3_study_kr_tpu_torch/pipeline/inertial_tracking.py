@@ -16,6 +16,8 @@ a K2 launch and each solve ``_optimize_frame_pose`` below.  The IMU state
 as in the reference; the solves run on the tracker's device.
 """
 
+import bisect
+
 import numpy as np
 import torch
 
@@ -36,6 +38,9 @@ from orb_slam3_study_kr_tpu_torch.solvers.robust import CHI2_MONO, CHI2_STEREO
 # 4096 (the reference's largest padding buckets).
 FRAME_MAX_ROWS = 1024
 KF_MAX_ROWS = 4096
+# Past the final init the frame log is trimmed to the map once it holds
+# more frames than this.
+IMU_LOG_TRIM_FRAMES = 4096
 
 # Staged (priorG, priorA) of the 3 IMU-init stages (stage 1 at t1, VIBA1 at
 # t2, VIBA2 at t3).
@@ -109,6 +114,8 @@ class ImuMixin:
         self.imu_stage = 0            # 0 = vision only; 1/2/3 = init stages
         self.bias = np.zeros(6, np.float32)
         self._imu_log = []            # (frame_ts, rows): samples ending at ts
+        self._imu_unsorted = False    # a stamp went back: scan, do not search
+        self._imu_checked = self._imu_log   # the log the flag describes
         self.kf_imu = {}              # kf_id -> (prev_kf_id, rows (M, 7))
         self._pre_frame = None        # Preintegrated last frame -> current
         self._pred_v = None
@@ -127,18 +134,50 @@ class ImuMixin:
     # -------------------------------------------------------------- IMU I/O
     def _ingest_imu(self, imu_rows, timestamp):
         imu_rows = np.asarray(imu_rows, np.float32).reshape(-1, 7)
-        self._imu_log.append((timestamp, imu_rows))
-        if self.imu_stage >= 3 and len(self._imu_log) > 4096:
-            # Past the final init only recent windows are re-integrated.
-            self._imu_log = self._imu_log[-2048:]
+        log = self._imu_log
+        if self._log_in_order() and log and timestamp < log[-1][0]:
+            self._imu_unsorted = True
+        log.append((timestamp, imu_rows))
+        if self.imu_stage >= 3 and len(self._imu_log) > IMU_LOG_TRIM_FRAMES:
+            self._trim_imu_log()
         self._pred_v = None
         self._pre_frame = (_preintegrate_rows(imu_rows, self.bias, self.calib,
                                               FRAME_MAX_ROWS)
                            if imu_rows.shape[0] else None)
 
+    def _log_in_order(self):
+        """Whether the log's stamps never go back: appends keep the answer
+        (``_ingest_imu``), a log assigned whole is checked once."""
+        log = self._imu_log
+        if self._imu_checked is not log:
+            self._imu_unsorted = any(a[0] > b[0] for a, b in zip(log, log[1:]))
+            self._imu_checked = log
+        return not self._imu_unsorted
+
+    def _trim_imu_log(self):
+        """Drop the frames logged at or before the oldest valid keyframe's
+        stamp: every interval of the map's chain lies after it, so the loop
+        closer's full inertial BA still finds each interval's rows, and the
+        log grows with the map, not with the session."""
+        m = self.map
+        stamps = m.kf_timestamp[m.kf_valid]
+        if stamps.size == 0 or not self._log_in_order():
+            return
+        cut = bisect.bisect_right(self._imu_log, float(stamps.min()),
+                                  key=lambda e: e[0])
+        if cut:
+            self._imu_log = self._imu_checked = self._imu_log[cut:]
+
     def _rows_between(self, t0, t1):
-        """All logged samples with frame timestamp in (t0, t1]."""
-        chunks = [r for ts, r in self._imu_log if t0 < ts <= t1 and r.size]
+        """All logged samples with frame timestamp in (t0, t1]: a binary
+        search of the log, in frame order unless a stamp went back."""
+        log = self._imu_log
+        if not self._log_in_order():
+            chunks = [r for ts, r in log if t0 < ts <= t1 and r.size]
+        else:
+            a = bisect.bisect_right(log, t0, key=lambda e: e[0])
+            b = bisect.bisect_right(log, t1, key=lambda e: e[0])
+            chunks = [r for _, r in log[a:b] if r.size]
         return (np.concatenate(chunks) if chunks
                 else np.zeros((0, 7), np.float32))
 

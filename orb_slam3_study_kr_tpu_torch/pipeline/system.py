@@ -223,7 +223,20 @@ class SlamSystem:
     def _loop_closer(self, m, db):
         return LoopCloser(cfg=self.cfg.tracker, map=m, db=db,
                           ba_mesh=self.ba_mesh, inertial=self.inertial,
+                          imu=self._imu_intervals(),
                           uniforms_fn=self.loop_uniforms_fn)
+
+    def _imu_intervals(self):
+        """The loop closer's view of the IMU log: the tracker's calibration
+        and its rows between two keyframe stamps (the tracker of the moment,
+        as the stages are rebuilt with each map)."""
+        if not self.inertial:
+            return None
+        from orb_slam3_study_kr_tpu_torch.pipeline.global_ba import (
+            ImuIntervals)
+        return ImuIntervals(
+            self.tracker.calib,
+            lambda t0, t1: self.tracker._rows_between(t0, t1))
 
     def _build_tracker(self, m):
         c = self.cfg

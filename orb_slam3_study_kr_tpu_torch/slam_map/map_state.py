@@ -277,13 +277,14 @@ class MapState:
         self.change_idx += 1
 
     def remove_landmarks(self, ids):
+        from orb_slam3_study_kr_tpu_torch import native
+
         ids = np.asarray(ids, np.int32)
         if ids.size == 0:
             return
         self.lm_valid[ids] = False
         # Clear all bindings to these landmarks.
-        kill = np.isin(self.kf_kp_lm, ids)
-        self.kf_kp_lm[kill] = NO_LM
+        native.unbind_landmarks(self.kf_kp_lm, ids, self.max_lm)
         self.n_lm = int(self.lm_valid.sum())
         self.change_idx += 1
 

@@ -100,30 +100,38 @@ def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
                           Minv, rhs, n_cg)
 
 
-def _pcg_setup(Hpp_d, bp, fixed, shards, plans, psum_fn):
-    """(rhs, Minv) of ``_schur_pcg``: the reduced right-hand side and the
-    inverse diagonal blocks of S, identity at the fixed poses."""
+def _schur_terms(Hpp_d, bp, shards, plans, psum_fn):
+    """(g, Dk): the reduced gradient bp - W Hll_inv bl and the diagonal
+    blocks Hpp_d - (W Hll_inv W^T)_kk of S, unmasked (a pose/landmark pair
+    has at most one observation, so the correction is one segment-sum of
+    Y E^T)."""
     K = Hpp_d.shape[0]
-    freeK = (1.0 - fixed)[:, None]
     Ys = [torch.einsum("nab,nbc->nac", Es, Hi[ol])            # (O, 6, 3)
           for Hi, _, Es, _, ol in shards]
-    rhs = -(bp - psum_fn([segment_sum(K, op, torch.einsum(
+    g = bp - psum_fn([segment_sum(K, op, torch.einsum(
         "nab,nb->na", Y, bls[ol]), pp)
-        for Y, (_, bls, _, op, ol), (pp, _) in zip(Ys, shards, plans)]))
-    rhs = rhs * freeK
+        for Y, (_, bls, _, op, ol), (pp, _) in zip(Ys, shards, plans)])
     Dk = Hpp_d - psum_fn([segment_sum(K, op, torch.einsum(
         "nab,ncb->nac", Y, Es), pp)
         for Y, (_, _, Es, op, _), (pp, _) in zip(Ys, shards, plans)])
+    return g, Dk
+
+
+def _pcg_setup(Hpp_d, bp, fixed, shards, plans, psum_fn):
+    """(rhs, Minv) of ``_schur_pcg``: the reduced right-hand side and the
+    inverse diagonal blocks of S, identity at the fixed poses."""
+    freeK = (1.0 - fixed)[:, None]
+    g, Dk = _schur_terms(Hpp_d, bp, shards, plans, psum_fn)
+    rhs = -g * freeK
     eye6 = torch.eye(6, dtype=Hpp_d.dtype, device=Hpp_d.device)
     Dk = Dk * freeK[..., None] + eye6[None] * fixed[:, None, None]
     return rhs, inv_nan(Dk)
 
 
-def _schur_matvec(v, Hpp_d, freeK, shards, plans, psum_fn):
-    """S v of ``_schur_pcg``'s plain loop: freeK (Hpp_d w - u2) with
-    w = freeK v and u2 = W Hll_inv W^T w as two segment-sum sweeps per
-    shard, reduced over the shards by ``psum_fn``."""
-    K = Hpp_d.shape[0]
+def _schur_u2(w, shards, plans, psum_fn):
+    """u2 = W Hll_inv W^T w (K, 6) as two segment-sum sweeps per shard,
+    reduced over the shards by ``psum_fn``."""
+    K = w.shape[0]
 
     def u2_part(w, Hi, Es, op, ol, pp, lp):
         w = w.to(Es.device)
@@ -132,10 +140,16 @@ def _schur_matvec(v, Hpp_d, freeK, shards, plans, psum_fn):
         z = torch.einsum("mab,mb->ma", Hi, tv)
         return segment_sum(K, op, torch.einsum("nab,nb->na", Es, z[ol]), pp)
 
+    return psum_fn([u2_part(w, Hi, Es, op, ol, pp, lp)
+                    for (Hi, _, Es, op, ol), (pp, lp) in zip(shards, plans)])
+
+
+def _schur_matvec(v, Hpp_d, freeK, shards, plans, psum_fn):
+    """S v of ``_schur_pcg``'s plain loop: freeK (Hpp_d w - u2) with
+    w = freeK v and u2 = W Hll_inv W^T w (``_schur_u2``)."""
     w = v * freeK
     u = torch.einsum("kab,kb->ka", Hpp_d, w)
-    u2 = psum_fn([u2_part(w, Hi, Es, op, ol, pp, lp)
-                  for (Hi, _, Es, op, ol), (pp, lp) in zip(shards, plans)])
+    u2 = _schur_u2(w, shards, plans, psum_fn)
     return (u - u2) * freeK
 
 

@@ -16,7 +16,7 @@ from orb_slam3_study_kr_tpu_torch.cameras import pinhole
 from orb_slam3_study_kr_tpu_torch.lie.se3 import exp_se3
 from orb_slam3_study_kr_tpu_torch.ops import cuda_schur
 from orb_slam3_study_kr_tpu_torch.ops.segment import segment_plan
-from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust, local_ba
+from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust, inertial_ba, local_ba
 
 pytestmark = pytest.mark.gpu
 
@@ -220,3 +220,125 @@ def _card_matches_cpu(params, arrays, dev):
     np.testing.assert_allclose(card[1].numpy(), cpu[1].numpy(), atol=3e-3)
     np.testing.assert_allclose(card[2].numpy(), cpu[2].numpy(), atol=1e-2)
     assert abs(float(card[4]) - float(cpu[4])) <= 5e-6 * float(cpu[4])
+
+
+# ---------------------------------------------------------------------------
+# The inertial BA's loop: 15-wide states [phi, p, v, bg, ba], the visual
+# matvec on the pose slice, each state's 15x15 diagonal block and its
+# coupling to the next state of a chain (ops/cuda_schur.vi_schur_pcg).
+
+def vi_problem(dev, dtype, seed=5, **kw):
+    """schur_problem's visual system (K = 64 poses) as the pose slice of
+    15-wide states, plus an inertial chain over the states in a shuffled
+    order (so nxt is no shift of the index): each edge a PSD block J^T J
+    of a random (15, 30) J over its two states, scaled per dimension from
+    1 to 1e4 as the inertial blocks' scales spread.  D = the visual Hpp_d
+    on the pose slice + the edges' diagonal blocks + 1e-2 I; U the edges'
+    couplings; Minv the inverses of the diagonal blocks of D less the
+    visual correction (the block-Jacobi of the full system).  Poses 0 and
+    1 fixed; state 0's velocity and biases frozen as well, state 1's
+    free.  Built on the CPU in float64, moved to dev as dtype."""
+    Hpp, bp, Hll_inv, bl, E, op, ol, fixed = schur_problem(
+        torch.device("cpu"), torch.float64, **kw)
+    K = Hpp.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+    order = torch.randperm(K, generator=g)
+    nxt = torch.full((K,), -1, dtype=torch.int32)
+    nxt[order[:-1]] = order[1:].int()
+    scale = torch.logspace(0, 4, 15, dtype=f64)
+    J = torch.randn((K - 1, 15, 30), generator=g, dtype=f64)
+    J = J * torch.cat([scale, scale]).sqrt()
+    H = J.transpose(1, 2) @ J
+    ei, ej = order[:-1], order[1:]
+    D = torch.zeros((K, 15, 15), dtype=f64)
+    D[:, :6, :6] = Hpp
+    D.index_add_(0, ei, H[:, :15, :15])
+    D.index_add_(0, ej, H[:, 15:, 15:])
+    D = D + 1e-2 * torch.eye(15, dtype=f64)
+    U = torch.zeros((K, 15, 15), dtype=f64)
+    U[ei] = H[:, :15, 15:]
+    free = torch.ones((K, 15), dtype=f64)
+    free[:2, :6] = 0
+    free[0] = 0
+    plans = [(segment_plan(K, op), segment_plan(Hll_inv.shape[0], ol))]
+    _, Dk = local_ba._schur_terms(Hpp, bp, [(Hll_inv, bl, E, op, ol)], plans,
+                                  local_ba._only)
+    P = D.clone()
+    P[:, :6, :6] += Dk - Hpp
+    P = P * free[:, :, None] * free[:, None, :] + torch.diag_embed(1 - free)
+    rhs = torch.randn((K, 15), generator=g, dtype=f64) * scale.sqrt() * free
+    out = dict(D=D, U=U, nxt=nxt, Minv=torch.linalg.inv(P), rhs=rhs,
+               Hll_inv=Hll_inv, E=E, op=op, ol=ol, fixed=fixed, free=free)
+    return {k: (v.to(dev, dtype) if v.is_floating_point() else v.to(dev))
+            for k, v in out.items()}
+
+
+def _vi_plain(p, n_cg=N_CG):
+    """The plain loop of solvers/inertial_ba on p's device."""
+    K, M = p["D"].shape[0], p["Hll_inv"].shape[0]
+    plans = [(segment_plan(K, p["op"]), segment_plan(M, p["ol"]))]
+    shards = [(p["Hll_inv"], None, p["E"], p["op"], p["ol"])]
+    return local_ba._pcg_plain(
+        lambda v: inertial_ba._vi_matvec(v, p["D"], p["U"], p["nxt"],
+                                         p["free"], shards, plans),
+        p["Minv"], p["rhs"], n_cg)
+
+
+def _vi_kernel(p, n_cg=N_CG):
+    K, M = p["D"].shape[0], p["Hll_inv"].shape[0]
+    idx = cuda_schur.schur_index(K, M, p["op"], p["ol"])
+    return cuda_schur.vi_schur_pcg(
+        p["D"], p["U"], p["nxt"], p["Hll_inv"],
+        cuda_schur.landmark_planes(p["E"], idx), p["Minv"], p["rhs"],
+        p["fixed"], p["free"], idx, n_cg)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.float64, 1e-12)])
+def test_vi_kernel_matches_plain_loop(dev, dtype, rtol):
+    """15-wide states with an inertial chain: x within rtol of max |x| of
+    the plain loop on the card, the same 60 iterations in `dtype` with
+    sums in other orders.  On the CPU, reversing the observations' order
+    moved the plain loop's x by up to 1.2e-7 of its scale in float32 and
+    3.7e-16 in float64 (vi_problem, seeds 5-7); rtol leaves more than 800
+    times that.  Leaving the chain's couplings out moves x by 0.43-0.71 of
+    its scale.  Two calls give the same bits; 3 launches an iteration; frozen
+    values stay exactly 0."""
+    p = vi_problem(dev, dtype)
+    plain = _vi_plain(p)
+    before = cuda_schur.schur_pcg.launches
+    x1 = _vi_kernel(p)
+    torch.cuda.synchronize()
+    assert cuda_schur.schur_pcg.launches - before == 3 * N_CG
+    x2 = _vi_kernel(p)
+    torch.cuda.synchronize()
+    assert torch.equal(x1, x2)
+    scale = float(plain.abs().max())
+    assert torch.isfinite(x1).all() and scale > 0
+    err = float((x1 - plain).abs().max())
+    assert err <= rtol * scale, (err, scale)
+    assert torch.equal(x1[p["free"] == 0], torch.zeros_like(x1[p["free"] == 0]))
+    uncoupled = dict(p, U=torch.zeros_like(p["U"]))
+    assert float((_vi_kernel(uncoupled) - plain).abs().max()) > 0.1 * scale
+
+
+def test_vi_kernel_first_step_matches_the_plain_matvec(dev):
+    """One iteration from p = z with Minv = I: the kernel's first step
+    equals the plain step through solvers/inertial_ba._vi_matvec, the plain
+    loop's matvec, to 1e-10 of the scale in float64."""
+    p = vi_problem(dev, torch.float64)
+    K, M = p["D"].shape[0], p["Hll_inv"].shape[0]
+    idx = cuda_schur.schur_index(K, M, p["op"], p["ol"])
+    Ep = cuda_schur.landmark_planes(p["E"], idx)
+    eye = torch.eye(15, dtype=torch.float64, device=dev).expand(K, 15, 15)
+    rhs = p["rhs"]
+    x = cuda_schur.vi_schur_pcg(p["D"], p["U"], p["nxt"], p["Hll_inv"], Ep,
+                                eye.contiguous(), rhs, p["fixed"], p["free"],
+                                idx, 1)
+    plans = [(segment_plan(K, p["op"]), segment_plan(M, p["ol"]))]
+    shards = [(p["Hll_inv"], None, p["E"], p["op"], p["ol"])]
+    Ap = inertial_ba._vi_matvec(rhs, p["D"], p["U"], p["nxt"], p["free"],
+                                shards, plans)
+    ref = torch.sum(rhs * rhs) / torch.sum(rhs * Ap) * rhs
+    assert float((x - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
