@@ -39,7 +39,17 @@ Needs one CUDA card and nvcc.  Phases, one printed line each:
      solvers/inertial_ba (_vi_matvec under local_ba._pcg_plain), both in
      float32 against the plain loop in float64, the float64 kernel too,
      two calls bit-identical; its bound from the 15-wide bytes;
-Phases 3-5c also time each kernel three ways: its device time per launch
+  5d. K5 (reproj_linearize and reproj_cost, the global BA's reprojection
+     pass) on phase 5b's problem with a right coordinate on 55 % of the
+     observations (the cell's share): one LM step through
+     bundle_adjust(assembly="pcg") with its pinhole camera and one through
+     inertial_bundle_adjust(assembly="pcg"), each of which must launch K5
+     once to linearize and three times for costs (start, trial, final);
+     the linearize and cost passes bit-identical to the plain twin of
+     ops/cuda_reproj.py on the card, in both pose parametrisations, two
+     launches bit-identical; its bound from ops/cuda_reproj's bytes; and
+     one LM step of the solve with K5 against the einsum pass;
+Phases 3-5d also time each kernel three ways: its device time per launch
 (CUDA events around 100 back-to-back launches of the bare kernel on inputs
 prepared once, queued behind a device-side sleep so that the host's enqueue
 time stays outside the window), its route time per call (the wrapper as
@@ -791,7 +801,7 @@ def _k4_padded(dev, device_ms_per_launch, pad=8191):
                 device_unmasked_ms=res["unmasked_ms"])
 
 
-def _k4_vi_problem(dev, lam=1e-2):
+def _k4_vi_problem(dev, lam=1e-2, camera=False):
     """Phase 5b's bundle adjustment as the full inertial BA's problem: the
     camera is the body (T_bc = I), every pose a state [phi, p, v, bg, ba]
     moving at 1 m/s along x, the oldest state's pose frozen (its velocity
@@ -801,10 +811,12 @@ def _k4_vi_problem(dev, lam=1e-2):
     (vi_ba, system, index): vi_ba() runs inertial_bundle_adjust(
     assembly="pcg", n_iters=1), the full inertial BA's entry into the
     15-wide K4; system is the arguments of its _vi_schur_pcg call, float32
-    on dev."""
+    on dev.  With ``camera``, vi_ba passes its pinhole camera, so the
+    visual pass runs as K5."""
     import numpy as np
     import torch
     from orb_slam3_study_kr_tpu_torch.cameras import pinhole
+    from orb_slam3_study_kr_tpu_torch.cameras.camera import Camera, CameraKind
     from orb_slam3_study_kr_tpu_torch.imu.preintegration import (
         ImuCalib, preintegrate_batch_scan)
     from orb_slam3_study_kr_tpu_torch.solvers import inertial_ba
@@ -841,7 +853,8 @@ def _k4_vi_problem(dev, lam=1e-2):
             functools.partial(pinhole.project, pk),
             functools.partial(pinhole.project_jac, pk), *args, n_iters=1,
             fixed_vb=torch.zeros(K, device=dev), assembly="pcg",
-            init_lambda=lam)
+            init_lambda=lam,
+            camera=Camera(pk, CameraKind.PINHOLE) if camera else None)
 
     got = []
 
@@ -943,6 +956,143 @@ def phase_k4_vi(dev):
                 K=K, M=M, O=O, launches=launches)
 
 
+# K5 (phase 5d): operations per observation, counted from the kernel: the
+# residual (about 40), the camera, pose and point Jacobians with the free
+# flag (about 80), the weight (about 10), Hpp's upper triangle, bp, Hll's,
+# bl and E with their weighted factors (about 320): about 450, done once by
+# the observation's pose block and once by its landmark's lanes.
+K5_OPS_PER_OBS = 2 * 450
+K5_BF = 50.45                   # EuRoC's Camera.bf
+
+
+def _k5_stereo(arrays, seed=23):
+    """Right coordinates on about 55 % of _k4_arrays' observations (the
+    cell's share), at bf K5_BF with 0.5 px noise; -1 (mono) elsewhere."""
+    import numpy as np
+    R, t, _, X, _, op, ol, uv = arrays[:8]
+    rng = np.random.default_rng(seed)
+    pc = np.einsum("nab,nb->na", R[op], X[ol]) + t[op]
+    ur = (uv[:, 0] - K5_BF / np.maximum(pc[:, 2], 1e-6)
+          + rng.normal(0, 0.5, op.size))
+    return np.where(rng.random(op.size) < 0.55, ur, -1.0).astype(np.float32)
+
+
+def phase_k5(dev):
+    """5d: K5, the global BA's reprojection pass, at the cell's shapes."""
+    import torch
+    from orb_slam3_study_kr_tpu_torch.cameras import pinhole
+    from orb_slam3_study_kr_tpu_torch.cameras.camera import Camera, CameraKind
+    from orb_slam3_study_kr_tpu_torch.lie.so3 import exp_so3
+    from orb_slam3_study_kr_tpu_torch.ops import cuda_reproj, cuda_schur
+    from orb_slam3_study_kr_tpu_torch.solvers import bundle_adjust, robust
+    from orb_slam3_study_kr_tpu_torch.utils.profiling import device_ms_per_launch
+    params, arrays = _k4_arrays()
+    p = params.to(dev)
+    cam = Camera(p, CameraKind.PINHOLE)
+    a = [torch.as_tensor(x, device=dev) for x in arrays]
+    ur = torch.as_tensor(_k5_stereo(arrays), device=dev)
+    R, t, fixed, X, lm_mask, op, ol, uv, level, mask = a
+    K, M, O = R.shape[0], X.shape[0], op.numel()
+
+    def step(camera):
+        return bundle_adjust(functools.partial(pinhole.project, p),
+                             functools.partial(pinhole.project_jac, p), *a,
+                             n_iters=1, assembly="pcg", init_lambda=1e-2,
+                             obs_ur=ur, bf=K5_BF, camera=camera)
+
+    # The entries, unpatched: one LM step each through K5.
+    with _Launches() as entry:
+        out = step(cam)
+    vi_ba = _k4_vi_problem(dev, camera=True)[0]
+    with _Launches() as vi_entry:
+        vi_out = vi_ba()
+    launches = {k: (c.counts["reproj_linearize"], c.counts["reproj_cost"])
+                for k, c in (("visual", entry), ("inertial", vi_entry))}
+    if (any(n != (1, 3) for n in launches.values())
+            or not all(bool(torch.isfinite(o).all())
+                       for o in (*out[:3], *vi_out[:5]))):
+        raise AssertionError(f"K5: one LM step launched {launches} "
+                             f"(linearize, cost), expected (1, 3) each")
+    ref = step(None)
+    step_gap = {k: float((x - y).abs().max())
+                for k, x, y in zip(("R", "t", "X"), out, ref)}
+    # The kernel against its plain twin on the card, in both
+    # parametrisations (the body one through a rig's extrinsic).
+    idx = cuda_schur.schur_index(K, M, op, ol, obs_mask=mask)
+    isig = robust.octave_inv_sigma2(level)
+    R_cb = exp_so3(torch.tensor([0.02, -0.05, 0.03], device=dev))
+    t_cb = torch.tensor([0.02, -0.06, 0.01], device=dev)
+    R_wb = torch.einsum("kba,bc->kac", R, R_cb).contiguous()
+    p_wb = torch.einsum("kba,kb->ka", R, t_cb[None] - t).contiguous()
+    states = {
+        "T_cw": (cuda_reproj.setup(cam, idx, op, ol, uv, isig, mask, lm_mask,
+                                   fixed, obs_ur=ur, bf=K5_BF), R, t),
+        "body": (cuda_reproj.setup(cam, idx, op, ol, uv, isig, mask, lm_mask,
+                                   fixed, obs_ur=ur, bf=K5_BF,
+                                   extrinsic=(R_cb, t_cb)), R_wb, p_wb)}
+    L = int(idx.lm_off[M])
+    res = {}
+    for name, (s, Rk, tk) in states.items():
+        got = [g.clone() for g in cuda_reproj.linearize(s, Rk, tk, X)]
+        again = cuda_reproj.linearize(s, Rk, tk, X)
+        c, chi2 = cuda_reproj.cost(s, Rk, tk, X, chi2=True)
+        twin = cuda_reproj.linearize_plain(
+            s.cam, s.rec, idx.lm_off, idx.pose_pos, idx.pose_off, Rk, tk, X,
+            s.lm_mask, s.free, s.body, s.huber)
+        c_p, chi2_p = cuda_reproj.cost_plain(s.cam, s.rec, Rk, tk, X,
+                                             s.lm_mask, s.body, s.huber)
+        got[5], again = got[5][:, :L], list(again[:5]) + [again[5][:, :L]]
+        twin = list(twin[:5]) + [twin[5][:, :L]]
+        diff = {n: float((x - y).abs().max()) for n, x, y in zip(
+            ("Hpp", "bp", "Hll", "bl", "E", "E_planes"), got, twin)}
+        diff.update(cost=abs(float(c) - float(c_p)),
+                    chi2=float((chi2 - chi2_p).abs().max()))
+        if (any(diff.values()) or not all(torch.equal(x, y)
+                                          for x, y in zip(got, again))
+                or not all(bool(torch.isfinite(x).all()) for x in got)):
+            raise AssertionError(f"K5 {name}: kernel against its twin {diff}")
+        res[name + "_device_ms"] = device_ms_per_launch(
+            lambda: cuda_reproj.linearize(s, Rk, tk, X))
+        res[name + "_cost_device_ms"] = device_ms_per_launch(
+            lambda: cuda_reproj.cost(s, Rk, tk, X, chi2=True))
+    s = states["T_cw"][0]
+    route_ms = _per_call_ms(lambda: cuda_reproj.linearize(s, R, t, X))
+    plain_ms = _per_call_ms(lambda: cuda_reproj.linearize_plain(
+        s.cam, s.rec, idx.lm_off, idx.pose_pos, idx.pose_off, R, t, X,
+        s.lm_mask, s.free, False, True), n=2, warmup=1)
+    step_ms = _per_call_ms(lambda: step(cam), n=3, warmup=1)
+    step_einsum_ms = _per_call_ms(lambda: step(None), n=3, warmup=1)
+    nbytes = cuda_reproj.linearize_bytes(K, M, O, 4)
+    cost_nbytes = cuda_reproj.cost_bytes(K, M, O, 4)
+    bound_ms, bound_by = _bound(nbytes, O * K5_OPS_PER_OBS)
+    cost_bound_ms = cost_nbytes / PEAK_BYTES_S * 1e3
+    device_ms = res["T_cw_device_ms"]
+    print(f"phase K5: at K={K} M={M} O={O} ({int((ur >= 0).sum())} stereo "
+          f"rows, live {L}) one LM step launched K5 {launches} times "
+          f"(linearize, cost); kernel bit-identical to its plain twin in "
+          f"both parametrisations (Hpp, bp, Hll, bl, E in both layouts, cost, "
+          f"chi2), two launches bit-identical; linearize: device "
+          f"{device_ms:.5f} ms (body {res['body_device_ms']:.5f}), route "
+          f"{route_ms:.5f} ms, plain twin {plain_ms:.5f} ms; bound "
+          f"{bound_ms:.5f} ms by {bound_by} (max({nbytes} B / 3.35 TB/s, "
+          f"{O * K5_OPS_PER_OBS} op / 67 T/s)), device time at "
+          f"{bound_ms / device_ms:.3f} of the bound; cost with chi2: device "
+          f"{res['T_cw_cost_device_ms']:.5f} ms (body "
+          f"{res['body_cost_device_ms']:.5f}), bound {cost_bound_ms:.5f} ms "
+          f"({cost_nbytes} B), at "
+          f"{cost_bound_ms / res['T_cw_cost_device_ms']:.3f}; one LM step "
+          f"of the solve {step_ms:.3f} ms, {step_einsum_ms:.3f} ms with the "
+          f"einsum pass (largest gaps after it: {step_gap})")
+    return dict(max_abs_err=0.0, device_ms=device_ms, route_ms=route_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, ops=O * K5_OPS_PER_OBS,
+                cost_bytes=cost_nbytes, cost_bound_ms=cost_bound_ms,
+                step_ms=step_ms, step_einsum_ms=step_einsum_ms,
+                step_gap=step_gap, K=K, M=M, O=O, live=L,
+                launches=sum(launches["visual"]),
+                launches_per_step=launches, **res)
+
+
 class _Launches:
     """Reset every kernel's launch counter on entry, read them on exit."""
 
@@ -950,11 +1100,14 @@ class _Launches:
         import torch
         from orb_slam3_study_kr_tpu_torch.ops import (cuda_fast, cuda_hamming,
                                                       cuda_matching,
+                                                      cuda_reproj,
                                                       cuda_schur)
         self.wrappers = dict(fast_nms_blur=cuda_fast.fast_nms_blur_pyramid,
                              gated_nn=cuda_matching.gated_nn,
                              hamming_nn=cuda_hamming.hamming_nn,
-                             schur_pcg=cuda_schur.schur_pcg)
+                             schur_pcg=cuda_schur.schur_pcg,
+                             reproj_linearize=cuda_reproj.linearize,
+                             reproj_cost=cuda_reproj.cost)
         torch.cuda.synchronize()
         for f in self.wrappers.values():
             f.launches = 0
@@ -2970,6 +3123,7 @@ def main(argv=None):
     out["k3"] = run("k3", phase_k3, dev, img_a, img_b)
     out["k4"] = run("k4", phase_k4, dev)
     out["k4_vi"] = run("k4_vi", phase_k4_vi, dev)
+    out["k5"] = run("k5", phase_k5, dev)
     recorder = _Recorder()
     with recorder.recording("local_ba"):
         loop_off = run("loop_off", phase_loop_off, dev, scen["loop_off"])
@@ -3034,13 +3188,17 @@ def main(argv=None):
     # none of them either: phase 5c's one LM step through
     # inertial_bundle_adjust(assembly="pcg") (180).
     launches["schur_pcg_vi"] = out["k4_vi"]["launches"]
+    # K5 runs in the same solves: phase 5d's one LM step through
+    # bundle_adjust with its camera (1 linearize and 3 cost launches).
+    launches["reproj_lin"] = out["k5"]["launches"]
     kernels = []
     for name, key, src, replaces in (
             ("fast_nms_blur", "k1", "fast_nms_blur.cu", "pallas_fast.py:122"),
             ("gated_nn", "k2", "gated_nn.cu", "pallas_matching.py:144"),
             ("hamming_nn", "k3", "hamming_nn.cu", "pallas_matching.py:210"),
             ("schur_pcg", "k4", "schur_pcg.cu", None),
-            ("schur_pcg_vi", "k4_vi", "schur_pcg.cu", None)):
+            ("schur_pcg_vi", "k4_vi", "schur_pcg.cu", None),
+            ("reproj_lin", "k5", "reproj_lin.cu", None)):
         r = out[key]
         kernels.append(dict(
             name=name, route="cuda", source=f"{PKG}/csrc/{src}",

@@ -3,9 +3,9 @@
 The ``csrc/*.cu`` files compile into shared libraries with a plain C
 interface (nvcc, ``sm_90a``), loaded with ctypes, one library per source
 group (``GROUPS``): ``slam_kernels`` holds the tracking kernels K1-K3,
-``schur_pcg`` the global BAs' PCG loops (K4, visual and inertial), so a
-global BA builds one
-small file and never K1-K3.  A group's build runs one nvcc process per
+``schur_pcg`` the global BAs' PCG loops (K4, visual and inertial) and
+their reprojection pass (K5), so a global BA builds two small files and
+never K1-K3.  A group's build runs one nvcc process per
 source, all started together, then one link.  It happens at first use
 into ``csrc/build/`` (git-ignored); the library name carries a hash of the
 group's sources, so an edited kernel is rebuilt and a stale one is never
@@ -24,7 +24,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 GROUPS = {"slam_kernels": ("fast_nms_blur.cu", "gated_nn.cu", "hamming_nn.cu"),
-          "schur_pcg": ("schur_pcg.cu",)}
+          "schur_pcg": ("schur_pcg.cu", "reproj_lin.cu")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -113,6 +113,12 @@ def _bind(lib, group):
             fn.restype = i
         for fn in (lib.vi_schur_pcg_f32, lib.vi_schur_pcg_f64):
             fn.argtypes = [p] * 23 + [i, i, i, i, p]
+            fn.restype = i
+        for fn in (lib.reproj_linearize_f32, lib.reproj_linearize_f64):
+            fn.argtypes = [p] * 16 + [i] * 5 + [p]
+            fn.restype = i
+        for fn in (lib.reproj_cost_f32, lib.reproj_cost_f64):
+            fn.argtypes = [p] * 10 + [i] * 3 + [p]
             fn.restype = i
     return lib
 

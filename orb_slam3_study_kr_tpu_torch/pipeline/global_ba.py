@@ -234,7 +234,8 @@ def _solve_vigba(cfg, imu, s, n_iters, dev):
         a["bias"], a["fixed_p"], R_cb, t_cb, a["X"], a["lm_mask"], a["op"],
         a["ol"], a["ouv"], a["olev"], a["omask"], a["edge_i"], a["edge_j"],
         pre, a["edge_mask"], n_iters=n_iters, fixed_vb=a["fixed_vb"],
-        wide_fov=cfg.is_kb8, assembly=assembly, **stereo_kw)
+        wide_fov=cfg.is_kb8, assembly=assembly, camera=cfg.camera,
+        **stereo_kw)
     with TIMERS.stage("gba/download"):
         R_cw = R_cb @ R_wb.transpose(1, 2)
         t_cw = t_cb - torch.einsum("kij,kj->ki", R_cw, p_wb)
@@ -261,7 +262,8 @@ def _solve_gba(cfg, s, n_iters, dev):
                              bf=cfg.bf)
     R, tr, X_new, chi2, _ = bundle_adjust(
         cfg.project_fn, cfg.project_jac_fn, *args, n_iters=n_iters,
-        assembly=assembly, wide_fov=cfg.is_kb8, **stereo_kw)
+        assembly=assembly, wide_fov=cfg.is_kb8, camera=cfg.camera,
+        **stereo_kw)
     with TIMERS.stage("gba/download"):
         return {k: v.cpu().numpy() for k, v in
                 dict(R=R, t=tr, X_new=X_new, chi2=chi2).items()}

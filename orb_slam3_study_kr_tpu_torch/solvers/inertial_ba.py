@@ -19,8 +19,10 @@ each state's 15x15 diagonal block, its coupling to the next keyframe of
 the temporal chain (the inertial edges of a chain are block-tridiagonal)
 and the visual part W Hll^-1 W^T on the pose slice as two sweeps over the
 observations, solved by block-Jacobi PCG (on one-shard CUDA tensors the
-loop of ``ops/cuda_schur.vi_schur_pcg``).  Both assemblies damp the
-Schur-complemented diagonal alike, so they solve the same step.
+loop of ``ops/cuda_schur.vi_schur_pcg``; with the BA's ideal pinhole
+camera its visual linearization and costs run as K5,
+``ops/cuda_reproj.py``).  Both assemblies damp the Schur-complemented
+diagonal alike, so they solve the same step.
 
 Visual Jacobians are closed form; the 9-D preintegration edges get their
 24-dim pair Jacobians from forward-mode autodiff in the dense assembly
@@ -50,7 +52,7 @@ from orb_slam3_study_kr_tpu_torch.imu.preintegration import (
 from orb_slam3_study_kr_tpu_torch.lie.so3 import (exp_so3, hat,
                                                   normalize_rotation,
                                                   orthonormalize)
-from orb_slam3_study_kr_tpu_torch.ops import cuda_schur
+from orb_slam3_study_kr_tpu_torch.ops import cuda_reproj, cuda_schur
 from orb_slam3_study_kr_tpu_torch.ops.segment import (put_add_, put_plan,
                                                       segment_plan, segment_sum)
 from orb_slam3_study_kr_tpu_torch.solvers import local_ba, robust
@@ -117,17 +119,19 @@ def _vi_matvec(v, D, U, nxt, free_dims, shards, plans):
 
 
 def _vi_schur_pcg(D, U, nxt, Minv, rhs, Hll_inv, E, obs_pose, obs_lm, fixed,
-                  free_dims, n_cg, plans, index=None):
+                  free_dims, n_cg, plans, index=None, E_planes=None):
     """x (K, 15) after n_cg block-Jacobi PCG iterations on the PCG
     assembly's reduced system from x = 0: on CUDA tensors the kernels of
     ``ops/cuda_schur.vi_schur_pcg`` (``index``: the solve's
-    ``schur_index``, required there), elsewhere the plain loop."""
+    ``schur_index``, required there; ``E_planes`` as ``local_ba._schur_pcg``
+    takes them), elsewhere the plain loop."""
     fused = D.device.type == "cuda"
     if fused:
         if index is None:
             raise ValueError("_vi_schur_pcg: the CUDA route takes the "
                              "solve's schur_index")
-        E_planes = cuda_schur.landmark_planes(E, index)
+        if E_planes is None:
+            E_planes = cuda_schur.landmark_planes(E, index)
     with TIMERS.stage("viba/pcg_loop"):
         TIMERS.count("viba/cg_iters", n_cg)
         if fused:
@@ -158,7 +162,8 @@ def inertial_bundle_adjust(
         obs_ur=None, bf=None,
         fixed_vb=None,                # (K,) 1.0 = frozen velocity and bias
         wide_fov: bool = False,       # fisheye: |p| > 1e-3, not z > 1e-3
-        assembly: str = "dense", n_cg: int = 60):
+        assembly: str = "dense", n_cg: int = 60,
+        camera=None):                 # the Camera of project_fn (K5's route)
     """Returns (R_wb, p_wb, v_w, bias, X, chi2_vis (O,), cost).
 
     edge_i / edge_j index the K states (masked edges are no-ops).  In
@@ -167,7 +172,11 @@ def inertial_bundle_adjust(
     edge_i[e]'s bias and a 6-D random-walk edge couples the two states'
     biases.  ``assembly="pcg"`` (see the module docstring, ``n_cg`` CG
     iterations an LM step) takes a chain: each state is edge_i of at most
-    one edge and edge_j of at most one, and no shared bias."""
+    one edge and edge_j of at most one, and no shared bias.  ``camera``:
+    the ``cameras.camera.Camera`` that project_fn and project_jac_fn
+    evaluate; on the card the PCG assembly with a zero-distortion pinhole
+    runs the visual linearization and costs as K5
+    (``cuda_reproj.takes``)."""
     if assembly not in ("dense", "pcg"):
         raise ValueError(f"inertial_bundle_adjust: unknown assembly "
                          f"{assembly!r}")
@@ -232,11 +241,18 @@ def inertial_bundle_adjust(
         ends = torch.cat([ei, ej])
         plan["state"] = segment_plan(K, ends)
         free_dims = (1.0 - fixd).reshape(K, 15).to(dtype)
+        k5 = cuda_reproj.takes(camera, dev, assembly, wide_fov)
         pcg_index = (cuda_schur.schur_index(K, M, obs_pose, obs_lm,
                                             plan["pose"], plan["lm"],
                                             obs_mask)
-                     if dev.type == "cuda" else None)
+                     if dev.type == "cuda" or k5 else None)
+        lin = (cuda_reproj.setup(camera, pcg_index, obs_pose, obs_lm, obs_uv,
+                                 inv_sigma2, obs_mask, lm_mask, fixed,
+                                 obs_ur=obs_ur, bf=bf,
+                                 extrinsic=(R_cb, t_cb))
+               if k5 else None)
     else:
+        lin = None
         HS = (n_dim, n_dim)
         edge_pairs = _pairs(all_edge_cols[:, :, None],
                             all_edge_cols[:, None, :])
@@ -311,10 +327,14 @@ def inertial_bundle_adjust(
     z24 = torch.zeros((E, 24), dtype=dtype, device=dev)
 
     def full_cost(R_all, p_all, v_all, b_all, X_all):
-        r_v, _, _, depth_ok = vis_terms(R_all, p_all, X_all, False)
-        chi2 = torch.sum(r_v * r_v, -1) * inv_sigma2
-        valid = obs_mask * lm_mask[obs_lm] * depth_ok
-        c_vis = torch.sum(_huber_rho(chi2, chi2_gate, huber_delta) * valid)
+        if lin is not None:
+            c_vis = cuda_reproj.cost(lin, R_all, p_all, X_all)
+        else:
+            r_v, _, _, depth_ok = vis_terms(R_all, p_all, X_all, False)
+            chi2 = torch.sum(r_v * r_v, -1) * inv_sigma2
+            valid = obs_mask * lm_mask[obs_lm] * depth_ok
+            c_vis = torch.sum(_huber_rho(chi2, chi2_gate, huber_delta)
+                              * valid)
         r_i = state_res(R_all, p_all, v_all, b_all)
         chi2_i = torch.sum(r_i * r_i, -1)
         c_in = torch.sum(_huber_rho(chi2_i, d2_in, d_in) * edge_mask)
@@ -333,20 +353,27 @@ def inertial_bundle_adjust(
         TIMERS.count("viba/lm_steps")
         # Visual part and the landmark Schur complement.
         with TIMERS.stage("viba/linearize"):
-            r_v, J_pose6, J_X, depth_ok = vis_terms(R_all, p_all, X_all)
-            chi2 = torch.sum(r_v * r_v, -1) * inv_sigma2
-            valid = obs_mask * lm_mask[obs_lm] * depth_ok
-            w = inv_sigma2 * valid * robust.huber_weight(chi2, huber_delta)
-            Jp6 = J_pose6 * free[obs_pose][:, None, None]
-            Hpp6 = segment_sum(K, obs_pose, torch.einsum(
-                "nia,n,nib->nab", Jp6, w, Jp6), plan["pose"])
-            bp6 = segment_sum(K, obs_pose, torch.einsum(
-                "nia,n,ni->na", Jp6, w, r_v), plan["pose"])
-            Hll = segment_sum(M, obs_lm, torch.einsum(
-                "nia,n,nib->nab", J_X, w, J_X), plan["lm"])
-            bl = segment_sum(M, obs_lm, torch.einsum(
-                "nia,n,ni->na", J_X, w, r_v), plan["lm"])
-            Eob = torch.einsum("nia,n,nib->nab", Jp6, w, J_X)   # (O, 6, 3)
+            if lin is not None:
+                Hpp6, bp6, Hll, bl, Eob, E_planes = cuda_reproj.linearize(
+                    lin, R_all, p_all, X_all)
+            else:
+                r_v, J_pose6, J_X, depth_ok = vis_terms(R_all, p_all, X_all)
+                chi2 = torch.sum(r_v * r_v, -1) * inv_sigma2
+                valid = obs_mask * lm_mask[obs_lm] * depth_ok
+                w = inv_sigma2 * valid * robust.huber_weight(chi2,
+                                                             huber_delta)
+                Jp6 = J_pose6 * free[obs_pose][:, None, None]
+                Hpp6 = segment_sum(K, obs_pose, torch.einsum(
+                    "nia,n,nib->nab", Jp6, w, Jp6), plan["pose"])
+                bp6 = segment_sum(K, obs_pose, torch.einsum(
+                    "nia,n,ni->na", Jp6, w, r_v), plan["pose"])
+                Hll = segment_sum(M, obs_lm, torch.einsum(
+                    "nia,n,nib->nab", J_X, w, J_X), plan["lm"])
+                bl = segment_sum(M, obs_lm, torch.einsum(
+                    "nia,n,ni->na", J_X, w, r_v), plan["lm"])
+                Eob = torch.einsum("nia,n,nib->nab", Jp6, w,
+                                   J_X)                         # (O, 6, 3)
+                E_planes = None
 
         # Inertial edges.
         with TIMERS.stage("viba/inertial"):
@@ -424,7 +451,8 @@ def inertial_bundle_adjust(
                 dx = _vi_schur_pcg(Dm, U, nxt, inv_nan(Pk), -grad * fd,
                                    Hll_inv,
                                    Eob, obs_pose, obs_lm, fixed, fd, n_cg,
-                                   [(plan["pose"], plan["lm"])], pcg_index)
+                                   [(plan["pose"], plan["lm"])], pcg_index,
+                                   E_planes)
             else:
                 Wc = torch.zeros((K, M, 6, 3), dtype=dtype, device=dev)
                 put_add_(Wc, (obs_pose, obs_lm), Eob, plan["W"])
@@ -475,6 +503,9 @@ def inertial_bundle_adjust(
             lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
                               torch.clamp(lam * 5.0, max=1e4))
             cost = torch.where(accept, cost_new, cost)
-    r_v = vis_terms(R_all, p_all, X_all, False)[0]
-    chi2_f = torch.sum(r_v * r_v, -1) * inv_sigma2
+    if lin is not None:
+        chi2_f = cuda_reproj.cost(lin, R_all, p_all, X_all, chi2=True)[1]
+    else:
+        r_v = vis_terms(R_all, p_all, X_all, False)[0]
+        chi2_f = torch.sum(r_v * r_v, -1) * inv_sigma2
     return R_all, p_all, v_all, b_all, X_all, chi2_f, cost

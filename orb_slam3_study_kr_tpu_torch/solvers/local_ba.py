@@ -16,6 +16,9 @@ Counterpart of ``orb_slam3_study_kr_tpu/solvers/local_ba.py``:
   preconditioned conjugate gradients, two segment-sum sweeps per matvec
   (on the card, one shard: the CG loop as the kernels of
   ``ops/cuda_schur.py``);
+- on that route, with the BA's ideal pinhole camera, the linearization and
+  every cost pass run as K5 (``ops/cuda_reproj.py``): residuals,
+  Jacobians, Huber weights, the four block sums and E in one launch;
 - LM damping with accept/reject stays on the device.
 
 The caller culls observations whose final chi2 exceeds the 5.991 gate.
@@ -30,7 +33,7 @@ in ``_schur_pcg`` ``ba/pcg_setup`` and ``ba/pcg_loop``.  Counts:
 import torch
 
 from orb_slam3_study_kr_tpu_torch.lie.se3 import exp_se3, se3_compose
-from orb_slam3_study_kr_tpu_torch.ops import cuda_schur
+from orb_slam3_study_kr_tpu_torch.ops import cuda_reproj, cuda_schur
 from orb_slam3_study_kr_tpu_torch.ops.segment import segment_plan, segment_sum
 from orb_slam3_study_kr_tpu_torch.solvers import robust
 from orb_slam3_study_kr_tpu_torch.solvers.linalg_nan import inv_nan, solve_nan
@@ -48,7 +51,7 @@ def _only(parts):
 
 
 def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
-               plans, psum_fn=None, index=None):
+               plans, psum_fn=None, index=None, E_planes=None):
     """Matrix-free solve of the reduced camera system S dp = rhs.
 
     S v = Hpp_d v - W Hll_inv W^T v is two segment-sum sweeps over the
@@ -59,8 +62,10 @@ def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
     On CUDA tensors of one shard (``psum_fn is None``) the CG loop runs as
     the hand-written kernels of ``ops/cuda_schur.py`` (K4), float32 or
     float64, and ``index`` is required: the solve's ``schur_index``, which
-    the caller builds once per solve.  Elsewhere ``_pcg_plain``, which is
-    the kernel's plain version, and ``index`` is not read.
+    the caller builds once per solve; ``E_planes``, E as the kernel's
+    landmark-sorted planes when the caller has them (K5 writes them), else
+    gathered here.  Elsewhere ``_pcg_plain``, which is the kernel's plain
+    version, and ``index`` and ``E_planes`` are not read.
 
     With ``psum_fn`` (the landmark-sharded solve of parallel/dist_ba.py)
     Hll_inv, bl, E, obs_pose and obs_lm are sequences with one entry per
@@ -88,7 +93,8 @@ def _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose, obs_lm, fixed, n_cg,
             if index is None:
                 raise ValueError("_schur_pcg: the CUDA route takes the "
                                  "solve's schur_index")
-            E_planes = cuda_schur.landmark_planes(E, index)
+            if E_planes is None:
+                E_planes = cuda_schur.landmark_planes(E, index)
 
     with TIMERS.stage("ba/pcg_loop"):
         TIMERS.count("ba/cg_iters", n_cg)
@@ -182,12 +188,16 @@ def bundle_adjust(project_fn, project_jac_fn,
                   obs_pose, obs_lm, obs_uv, obs_level, obs_mask,
                   n_iters: int = 10, use_huber: bool = True,
                   init_lambda: float = 1e-4, assembly: str = "dense",
-                  n_cg: int = 60, obs_ur=None, bf=None, wide_fov=False):
+                  n_cg: int = 60, obs_ur=None, bf=None, wide_fov=False,
+                  camera=None):
     """Returns (R_cw, t_cw, X, final_chi2 (O,), final_cost).  ``assembly``
     is "dense" or "pcg" (see the module docstring).  With obs_ur (O,) and
     bf = fx * baseline, observations with obs_ur >= 0 get the stereo third
     residual row and the 3-dof chi2/Huber gate 7.815.  ``wide_fov``: the
-    fisheye cheirality |p| > 1e-3 in place of z > 1e-3."""
+    fisheye cheirality |p| > 1e-3 in place of z > 1e-3.  ``camera``: the
+    ``cameras.camera.Camera`` that project_fn and project_jac_fn evaluate;
+    a one-shard PCG solve on the card with a zero-distortion pinhole runs
+    its linearization and costs as K5 (``cuda_reproj.takes``)."""
     if assembly not in ("dense", "pcg"):
         raise ValueError(f"bundle_adjust: unknown assembly {assembly!r}")
     with TIMERS.stage("ba/solve"):
@@ -219,9 +229,16 @@ def bundle_adjust(project_fn, project_jac_fn,
                          else None)
             # The PCG kernels' index arrays, once per solve; the masked
             # observations (weight 0, so E = 0) stay out of their ranges.
+            k5 = cuda_reproj.takes(camera, dev, assembly, wide_fov)
             pcg_index = (cuda_schur.schur_index(K, M, obs_pose, obs_lm,
                                                 pose_plan, lm_plan, obs_mask)
-                         if assembly == "pcg" and dev.type == "cuda" else None)
+                         if assembly == "pcg" and (dev.type == "cuda" or k5)
+                         else None)
+            lin = (cuda_reproj.setup(camera, pcg_index, obs_pose, obs_lm,
+                                     obs_uv, inv_sigma2, obs_mask, lm_mask,
+                                     fixed, obs_ur=obs_ur, bf=bf,
+                                     use_huber=use_huber)
+                   if k5 else None)
 
             def huber_rho(chi2):
                 r = torch.sqrt(torch.clamp(chi2, min=1e-12))
@@ -248,24 +265,30 @@ def bundle_adjust(project_fn, project_jac_fn,
             fixd = fixed.repeat_interleave(6)
             R_all, t_all, X_all = R_cw, t_cw, X
             lam = torch.tensor(init_lambda, dtype=dt, device=dev)
-            cost = compute(R_all, t_all, X_all)[5]
+            cost = (cuda_reproj.cost(lin, R_all, t_all, X_all) if k5
+                    else compute(R_all, t_all, X_all)[5])
         for _ in range(n_iters):
             with TIMERS.stage("ba/lm_iter"):
                 TIMERS.count("ba/lm_steps")
                 with TIMERS.stage("ba/linearize"):
-                    r, J_pose, J_point, w, chi2, _ = compute(R_all, t_all,
-                                                             X_all)
-                    Jp = J_pose * free_pose[:, None, None]
-                    Hpp = segment_sum(K, obs_pose, torch.einsum(
-                        "nia,n,nib->nab", Jp, w, Jp), pose_plan)
-                    bp = segment_sum(K, obs_pose, torch.einsum(
-                        "nia,n,ni->na", Jp, w, r), pose_plan)
-                    Hll = segment_sum(M, obs_lm, torch.einsum(
-                        "nia,n,nib->nab", J_point, w, J_point), lm_plan)
-                    bl = segment_sum(M, obs_lm, torch.einsum(
-                        "nia,n,ni->na", J_point, w, r), lm_plan)
-                    E = torch.einsum("nia,n,nib->nab", Jp, w,
-                                     J_point)                   # (O, 6, 3)
+                    if k5:
+                        Hpp, bp, Hll, bl, E, E_planes = cuda_reproj.linearize(
+                            lin, R_all, t_all, X_all)
+                    else:
+                        r, J_pose, J_point, w, chi2, _ = compute(R_all, t_all,
+                                                                 X_all)
+                        Jp = J_pose * free_pose[:, None, None]
+                        Hpp = segment_sum(K, obs_pose, torch.einsum(
+                            "nia,n,nib->nab", Jp, w, Jp), pose_plan)
+                        bp = segment_sum(K, obs_pose, torch.einsum(
+                            "nia,n,ni->na", Jp, w, r), pose_plan)
+                        Hll = segment_sum(M, obs_lm, torch.einsum(
+                            "nia,n,nib->nab", J_point, w, J_point), lm_plan)
+                        bl = segment_sum(M, obs_lm, torch.einsum(
+                            "nia,n,ni->na", J_point, w, r), lm_plan)
+                        E = torch.einsum("nia,n,nib->nab", Jp, w,
+                                         J_point)               # (O, 6, 3)
+                        E_planes = None
 
                 with TIMERS.stage("ba/schur"):
                     Hll_d = Hll + lam * (eye3[None] + _diag(Hll, 3))
@@ -289,7 +312,7 @@ def bundle_adjust(project_fn, project_jac_fn,
                         dp = _schur_pcg(Hpp_d, bp, Hll_inv, bl, E, obs_pose,
                                         obs_lm, fixed, n_cg,
                                         [(pose_plan, lm_plan)],
-                                        index=pcg_index)
+                                        index=pcg_index, E_planes=E_planes)
 
                 with TIMERS.stage("ba/update"):
                     Wtdp = segment_sum(M, obs_lm, torch.einsum(
@@ -299,7 +322,8 @@ def bundle_adjust(project_fn, project_jac_fn,
                     dR, dtr = exp_se3(dp)
                     R_new, t_new = se3_compose(dR, dtr, R_all, t_all)
                     X_new = X_all + dl * lm_mask[:, None]
-                    cost_new = compute(R_new, t_new, X_new)[5]
+                    cost_new = (cuda_reproj.cost(lin, R_new, t_new, X_new)
+                                if k5 else compute(R_new, t_new, X_new)[5])
                     accept = cost_new < cost
                     R_all = torch.where(accept, R_new, R_all)
                     t_all = torch.where(accept, t_new, t_all)
@@ -308,5 +332,6 @@ def bundle_adjust(project_fn, project_jac_fn,
                                       torch.clamp(lam * 4.0, max=1e3))
                     cost = torch.where(accept, cost_new, cost)
         with TIMERS.stage("ba/final"):
-            chi2 = compute(R_all, t_all, X_all)[4]
+            chi2 = (cuda_reproj.cost(lin, R_all, t_all, X_all, chi2=True)[1]
+                    if k5 else compute(R_all, t_all, X_all)[4])
     return R_all, t_all, X_all, chi2, cost
